@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (ssdx_torch) once on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+  1. print the card (nvidia-smi name and power limit, torch's device name);
+  2. build the CUDA kernels from ssdx_torch/csrc with nvcc (sm_90a), in
+     parallel, and print ptxas's register and spill lines;
+  3. the stem kernel (csrc/stem.cu) against its plain PyTorch version at
+     bs=32, 300x300, bf16: max |k - r| / (|r| + 1) < 0.05;
+  4. the NMS kernel (csrc/nms.cu) against its plain version at K=400 and
+     K=1600, class-aware and agnostic, thresholds 0.3 and 0.5: keep masks
+     equal bit for bit;
+  5. the main path: create_detector() (BN-folded bf16 SSD300 with the stem
+     kernel, bundled demo weights) and predict_pil on the three example
+     scenes, with the kernels' launch counters set to 0 just before and read
+     just after; detections are compared with the same weights run in f32
+     through the plain ops;
+  6. serving: the HTTP app answers POST /predict with a PNG for each scene;
+  7. timing with CUDA events after warm-up, on distinct inputs: bs=32
+     predict_batched images/s, and each kernel beside its plain version,
+     its library yardstick and its bound.
+Then it prints one {"kernels": [...]} line and, last, the device line.
+Without a CUDA device it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ssdx_torch.api import Detector
+from ssdx_torch.ops import _build
+from ssdx_torch.ops import nms as nms_ops
+from ssdx_torch.ops import stem as stem_ops
+from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
+                                  create_detector, create_server)
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+NMS_OPS_PER_PAIR = 31  # float32 operations of one DIoU + compare (csrc/nms.cu)
+SERVE_KW = dict(score_thresh=0.2, nms_thresh=0.3, max_per_img=100)
+BS = 32
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, inputs, iters=20, warmup=3) -> float:
+    """Mean ms per call of fn(x), cycling over distinct inputs."""
+    for i in range(warmup):
+        fn(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def stem_inputs(dev, n_batches=4, seed=0):
+    """Random bf16 images and stem weights at the scale of the JAX test."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std
+    w = (r(64, 3, 3, 3, std=0.15), r(64, std=0.3), r(64, 64, 3, 3, std=0.08), r(64, std=0.3))
+    xs = [r(BS, 300, 300, 3, std=1.0).to(torch.bfloat16) for _ in range(n_batches)]
+    return xs, w
+
+
+def check_stem(dev) -> dict:
+    xs, w = stem_inputs(dev)
+    got = stem_ops.stem_conv_pool(xs[0], *w)
+    ref = stem_ops.stem_conv_pool_ref(xs[0], *w)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (BS, 150, 150, 64) and got.dtype == torch.bfloat16
+    g, r = got.float(), ref.float()
+    rel = ((g - r).abs() / (r.abs() + 1.0)).max().item()
+    abs_err = (g - r).abs().max().item()
+    log(f"stem kernel vs plain (bs={BS}, bf16): max |k-r|/(|r|+1) = {rel:.3e} "
+        f"(limit 0.05), max |k-r| = {abs_err:.3e}")
+    assert torch.isfinite(g).all() and rel < 0.05, rel
+    return {"max_abs_err": abs_err}
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def nms_inputs(dev, B, K, seed, class_aware):
+    """Score-sorted, class-offset candidates clustered around a few centres
+    (long suppression chains), laid out as batched_nms_mask hands them to
+    the core."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(30, 270, (B, 12, 2))
+    pick = rng.integers(0, 12, (B, K))
+    lo = centers[np.arange(B)[:, None], pick] + rng.normal(0, 6, (B, K, 2))
+    boxes = np.concatenate([lo, lo + rng.uniform(15, 50, (B, K, 2))], -1)
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
+    scores = torch.as_tensor(rng.uniform(0.01, 1.0, (B, K)), dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(rng.integers(0, 5, (B, K)), device=dev)
+    valid = torch.ones((B, K), dtype=torch.bool, device=dev)
+    valid[:, -7:] = False
+    if class_aware:
+        boxes = boxes + labels.float()[..., None] * 4096.0
+    neg = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+    order = torch.argsort(-neg, dim=1, stable=True)
+    return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+            torch.gather(valid, 1, order))
+
+
+def check_nms(dev) -> dict:
+    worst = 0
+    for K in (400, 1600):
+        for class_aware in (True, False):
+            for thresh in (0.3, 0.5):
+                b, v = nms_inputs(dev, BS, K, seed=K + class_aware, class_aware=class_aware)
+                got = nms_ops.nms_core_sorted(b, v, thresh)
+                ref = nms_ops.nms_core_sorted_ref(b, v, thresh)
+                torch.cuda.synchronize()
+                diff = int((got != ref).sum())
+                log(f"nms kernel vs plain: K={K} class_aware={class_aware} thresh={thresh}: "
+                    f"{int(got.sum())} kept of {BS * K}, {diff} mismatches")
+                assert diff == 0, diff
+                worst = max(worst, diff)
+    return {"max_abs_err": float(worst)}
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def iou(a, b):
+    lt, rb = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = np.prod(np.clip(rb - lt, 0, None))
+    area = lambda x: np.prod(np.clip(x[2:] - x[:2], 0, None))
+    return inter / max(area(a) + area(b) - inter, 1e-7)
+
+
+def agreement(p, q):
+    """Greedy IoU>0.5 matching of p's boxes to q's: (matched, same label)."""
+    used, matched, same = set(), 0, 0
+    for bp, lp in zip(p["boxes"], p["labels"]):
+        best, j = 0.5, None
+        for k, bq in enumerate(q["boxes"]):
+            if k not in used and (o := iou(bp, bq)) > best:
+                best, j = o, k
+        if j is not None:
+            used.add(j)
+            matched += 1
+            same += int(lp == q["labels"][j])
+    return matched, same
+
+
+def main_path(dev):
+    from PIL import Image
+
+    from ssdx_torch.predict import postprocess, to_pylist
+
+    det = create_detector()
+    assert det.device.type == "cuda" and det.stem_kernel and det.dtype == torch.bfloat16
+    scenes = sorted(STATIC_DIR.glob("example_*.jpg"))
+    assert len(scenes) == 3, scenes
+    stem_ops.launches = nms_ops.launches = 0
+    preds = [det.predict_pil(Image.open(p), **SERVE_KW) for p in scenes]
+    torch.cuda.synchronize()
+    launches = {"stem": stem_ops.launches, "nms": nms_ops.launches}
+    log(f"main path: detections per scene {[len(p['labels']) for p in preds]}, "
+        f"kernel launches {launches}")
+    assert launches["stem"] > 0 and launches["nms"] > 0, launches
+
+    # the same weights in f32 through the plain ops: cuDNN convs (TF32 off)
+    # on the card, post-processing with the plain NMS on host tensors
+    torch.backends.cudnn.allow_tf32 = False
+    ref_det = Detector.from_weights(BUNDLED_WEIGHTS, CLASS_TO_IDX, device=dev)
+    images = np.concatenate([ref_det.preprocess_pil(Image.open(p)) for p in scenes])
+    loc, conf = ref_det.forward(images)
+    torch.backends.cudnn.allow_tf32 = True
+    refs = to_pylist(postprocess(loc.cpu(), conf.cpu(), ref_det.priors.cpu(), **SERVE_KW))
+    tot_m = tot_s = 0
+    for i, (p, r) in enumerate(zip(preds, refs)):
+        assert np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all()
+        assert p["boxes"].shape == (len(p["labels"]), 4)
+        m, s = agreement(p, r)
+        tot_m, tot_s = tot_m + m, tot_s + s
+        log(f"  scene {i + 1}: bf16 kernels {len(p['labels'])} dets, f32 plain "
+            f"{len(r['labels'])} dets, {m} matched (IoU>0.5), {s} with the same label")
+    n_ref = sum(len(r["labels"]) for r in refs)
+    log(f"main path vs f32 plain: {tot_m}/{n_ref} f32 detections matched, "
+        f"label agreement {tot_s}/{tot_m}")
+    assert n_ref > 0 and tot_m >= 0.8 * n_ref and tot_s >= 0.9 * tot_m
+    return det, launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def serve(det):
+    server = create_server(det, host="127.0.0.1", port=0, **SERVE_KW)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # local only
+    try:
+        for p in sorted(STATIC_DIR.glob("example_*.jpg")):
+            boundary = "ssdxsmokeboundary"
+            body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                    f'filename="{p.name}"\r\nContent-Type: image/jpeg\r\n\r\n').encode()
+            body += p.read_bytes() + f"\r\n--{boundary}--\r\n".encode()
+            req = urllib.request.Request(
+                url + "/predict", data=body, method="POST",
+                headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+            t0 = time.perf_counter()
+            with opener.open(req, timeout=300) as r:
+                status, ctype, png = r.status, r.headers["Content-Type"], r.read()
+            log(f"POST /predict {p.name}: {status} {ctype}, {len(png)} bytes, "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            assert status == 200 and ctype == "image/png" and png[:8] == b"\x89PNG\r\n\x1a\n"
+        with opener.open(url + "/", timeout=60) as r:
+            assert r.status == 200 and b"/predict" in r.read()
+        log("GET /: 200")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.predictor.close()
+        thread.join(timeout=10)
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def timing(dev, det, launches, errs):
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randn(BS, 300, 300, 3, generator=g, device=dev) for _ in range(4)]
+    ms = cuda_ms(lambda x: det.predict_batched(x, **SERVE_KW), batches)
+    log(f"predict_batched bs={BS} (bf16, stem + NMS kernels): {ms:.3f} ms/batch, "
+        f"{BS * 1e3 / ms:.1f} images/s")
+
+    # stem: kernel, plain version, and cuDNN's two convs + pool as yardstick
+    xs, w = stem_inputs(dev, seed=2)
+    stem_ms = cuda_ms(lambda x: stem_ops.stem_conv_pool(x, *w), xs)
+    plain_ms = cuda_ms(lambda x: stem_ops.stem_conv_pool_ref(x, *w), xs)
+    bf = torch.bfloat16
+    w1, b1, w2, b2 = (t.to(bf) for t in w)
+    w1, w2 = (t.contiguous(memory_format=torch.channels_last) for t in (w1, w2))
+    xs_cl = [x.permute(0, 3, 1, 2) for x in xs]  # NCHW view, channels-last memory
+    lib_ms = cuda_ms(lambda x: F.max_pool2d(F.relu(F.conv2d(
+        F.relu(F.conv2d(x, w1, b1, padding=1)), w2, b2, padding=1)), 2), xs_cl)
+    ops = 2 * BS * 300 * 300 * 64 * (27 + 576)
+    nbytes = BS * 300 * 300 * 3 * 2 + BS * 150 * 150 * 64 * 2 + (64 * 27 + 64 * 576) * 2 + 128 * 4
+    bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    log(f"stem kernel bs={BS}: {stem_ms:.4f} ms, library (cuDNN conv+conv+pool, bf16) "
+        f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({ops / 1e9:.1f} GFLOP bf16), 1 launch per forward")
+    kernels = [{
+        "name": "stem_conv_pool", "route": "cuda", "source": "ssdx_torch/csrc/stem.cu",
+        "replaces": "ssdx/ops/pallas_stem.py:293", "launches": launches["stem"],
+        "max_abs_err": errs["stem"]["max_abs_err"], "ms": stem_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES
+        else "bytes", "library_ms": lib_ms,
+    }]
+
+    # nms at the serving (K=400) and eval (K=1600) candidate counts
+    nms_row = None
+    for K in (400, 1600):
+        ins = [nms_inputs(dev, BS, K, seed=K + s, class_aware=True) for s in range(4)]
+        k_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted(*a, 0.3), ins)
+        p_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted_ref(*a, 0.3), ins, iters=4, warmup=1)
+        b, v = ins[0]
+        n_valid = v.sum(dim=1).tolist()
+        pairs = sum(n * (K - 1) - n * (n - 1) // 2 for n in n_valid)  # i valid, j > i
+        nb = BS * K * (16 + 1) + BS * K
+        bound_ops, bound_bytes = pairs * NMS_OPS_PER_PAIR / PEAK_F32, nb / PEAK_BYTES
+        bound = max(bound_ops, bound_bytes) * 1e3
+        log(f"nms kernel bs={BS} K={K}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{bound:.5f} ms, library none (no single PyTorch call for greedy NMS), "
+            f"1 launch per postprocess")
+        if K == 400:
+            nms_row = {
+                "name": "nms_core_sorted", "route": "cuda", "source": "ssdx_torch/csrc/nms.cu",
+                "replaces": "ssdx/ops/pallas_nms.py:157", "launches": launches["nms"],
+                "max_abs_err": errs["nms"]["max_abs_err"], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound,
+                "bound_by": "operations" if bound_ops > bound_bytes else "bytes",
+                "library_ms": None,
+            }
+    kernels.append(nms_row)
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t = time.perf_counter()
+    _build.build("stem", "nms")
+    for name, out in sorted(_build.build_logs.items()):
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas[{name}]: {line.strip()}")
+    log(f"built csrc/stem.cu and csrc/nms.cu for sm_90a in {time.perf_counter() - t:.1f} s")
+
+    errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
+    det, launches = main_path(dev)
+    serve(det)
+    kernels = timing(dev, det, launches, errs)
+    log(f"chip_smoke phases done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,28 @@
+"""ssdx_torch — SSD300 automotive object detection in PyTorch for NVIDIA Hopper.
+
+The PyTorch/CUDA counterpart of the JAX package ``ssdx``: the same network,
+priors, post-processing and serving contract, with the two kernels of the
+serving path (the fused conv1 stem and greedy DIoU-NMS) written by hand in
+CUDA C++ for ``sm_90a`` (``ssdx_torch/csrc``).  Public functions keep the
+JAX package's NHWC layout so the two can be compared like with like.
+
+Entry points run on the GPU unless the caller asks for the CPU
+(``device="cpu"``); with no GPU present they raise instead of carrying on
+quietly on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raise when a CUDA device is asked for but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ssdx_torch runs on a CUDA GPU by default and none is available; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    return dev

@@ -1,0 +1,149 @@
+"""High-level detector API, the torch counterpart of ``ssdx/api.py``.
+
+A :class:`Detector` owns the network, its weights on the device, and the
+prior constants; ``predict`` returns the ragged per-image contract (labels
+0-based foreground ids, scores, boxes xyxy in 300x300 coordinates).  On the
+GPU the serving configuration is ``fold_bn=True, stem_kernel=True,
+dtype=torch.bfloat16``: the forward starts with the fused stem kernel and
+post-processing runs the NMS kernel.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import priors as P
+from . import resolve_device
+from .export import fold_batchnorm
+from .model import IMAGE_SIZE, SSD300, init_variables
+from .ops.stem import stem_conv_pool
+from .predict import Detections, postprocess, to_pylist
+from .weights import load_params, state_dict_from_jax
+
+__all__ = ["Detector"]
+
+
+class Detector:
+    """SSD300 detector with a stable user API.
+
+    ``class_to_idx`` maps foreground class names to 0-based ids; background
+    is logit column 0 (``num_classes = len(class_to_idx) + 1``).
+    ``variables`` is a ``{'params', 'batch_stats'}`` tree in the JAX
+    package's layout (:func:`ssdx_torch.weights.load_params`); without it
+    the weights are drawn at random from ``rng_seed``.  ``fold_bn`` folds
+    BatchNorm into the convs; ``stem_kernel`` (which needs ``fold_bn``) runs
+    conv1_1 + conv1_2 + pool through :func:`ssdx_torch.ops.stem.stem_conv_pool`.
+    ``device`` defaults to ``cuda``.  ``width_mult`` narrows every backbone
+    layer, for tests.
+    """
+
+    def __init__(
+        self,
+        class_to_idx: dict[str, int],
+        variances: tuple[float, float] = (0.1, 0.2),
+        dtype: torch.dtype = torch.float32,
+        variables: dict | None = None,
+        rng_seed: int = 0,
+        fold_bn: bool = False,
+        stem_kernel: bool = False,
+        device=None,
+        width_mult: float = 1.0,
+    ):
+        self.device = resolve_device(device)
+        self.class_to_idx = dict(class_to_idx)
+        self.idx_to_class = {v: k for k, v in class_to_idx.items()}
+        self.num_classes = len(class_to_idx) + 1
+        self.variances = tuple(variances)
+        self.dtype = dtype
+        self.fold_bn = fold_bn
+        self.width_mult = width_mult
+        self.img_h = self.img_w = IMAGE_SIZE
+
+        if variables is None:
+            variables = init_variables(self.num_classes, rng_seed, width_mult)
+        if fold_bn and "batch_stats" in variables:
+            variables = fold_batchnorm(variables)
+        self.variables = variables
+
+        self.stem_kernel = bool(stem_kernel and fold_bn)
+        self.model = SSD300(self.num_classes, fold_bn=fold_bn,
+                            stem_input=self.stem_kernel, width_mult=width_mult,
+                            dtype=dtype)
+        self.model.load_state_dict(state_dict_from_jax(variables, fold_bn))
+        self.model.requires_grad_(False).eval()
+        self.model.to(self.device, memory_format=torch.channels_last)
+
+        self.priors = torch.as_tensor(P.create_priors(), device=self.device)
+
+    @classmethod
+    def from_weights(cls, path, class_to_idx, fold_bn: bool = True, **kwargs) -> "Detector":
+        """Load a weights-only export (pickle or ``.npz`` bundle); BatchNorm
+        is folded into the convs at load time unless ``fold_bn=False``."""
+        blob = load_params(path)
+        variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+        return cls(class_to_idx, variables=variables, fold_bn=fold_bn, **kwargs)
+
+    # ---- inference ----
+
+    @torch.inference_mode()
+    def forward(self, images) -> tuple[torch.Tensor, torch.Tensor]:
+        """Raw heads: images [B,300,300,3] (normalized, NHWC) ->
+        (loc [B,P,4], cls [B,P,C]) float32 on the detector's device."""
+        x = torch.as_tensor(images, device=self.device)
+        if self.stem_kernel:
+            c0, c1 = self.model.layers[0].conv, self.model.layers[1].conv
+            x = stem_conv_pool(x, c0.weight, c0.bias, c1.weight, c1.bias, self.dtype)
+        return self.model(x)
+
+    @torch.inference_mode()
+    def predict_batched(
+        self,
+        images=None,
+        score_thresh: float = 0.2,
+        nms_thresh: float = 0.5,
+        max_per_img: int = 100,
+        class_agnostic: bool = False,
+        pre_loc_all=None,
+        pre_conf_all=None,
+    ) -> Detections:
+        """Fixed-shape padded detections (tensors on the detector's device)."""
+        if pre_loc_all is not None and pre_conf_all is not None:
+            loc = torch.as_tensor(pre_loc_all, device=self.device)
+            conf = torch.as_tensor(pre_conf_all, device=self.device)
+        else:
+            if images is None:
+                raise ValueError("either images or precomputed logits required")
+            loc, conf = self.forward(images)
+        return postprocess(
+            loc,
+            conf,
+            self.priors,
+            score_thresh=score_thresh,
+            nms_thresh=nms_thresh,
+            max_per_img=max_per_img,
+            class_agnostic=class_agnostic,
+            variances=self.variances,
+        )
+
+    def predict(self, images=None, **kwargs) -> list[dict]:
+        """Ragged predictions: list (len B) of {'labels' int64 0..C-2,
+        'scores' float32, 'boxes' [K,4] xyxy in 300x300 pixel coords}."""
+        return to_pylist(self.predict_batched(images=images, **kwargs))
+
+    # ---- single-image convenience (serving path) ----
+
+    def preprocess_pil(self, pil_img) -> np.ndarray:
+        """EXIF-transpose + resize(300,300, bilinear) + ImageNet normalize;
+        returns [1,300,300,3] float32."""
+        from PIL import Image, ImageOps
+
+        pil_img = ImageOps.exif_transpose(pil_img.convert("RGB"))
+        pil_img = pil_img.resize((IMAGE_SIZE, IMAGE_SIZE), Image.BILINEAR)
+        arr = np.asarray(pil_img, np.float32) / 255.0
+        mean = np.asarray([0.485, 0.456, 0.406], np.float32)
+        std = np.asarray([0.229, 0.224, 0.225], np.float32)
+        return ((arr - mean) / std)[None]
+
+    def predict_pil(self, pil_img, **kwargs) -> dict:
+        """Predict on one PIL image; returns a single ragged dict."""
+        return self.predict(self.preprocess_pil(pil_img), **kwargs)[0]

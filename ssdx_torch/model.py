@@ -1,0 +1,178 @@
+"""SSD300 detector network: VGG16+BN backbone, extra layers, multibox heads.
+
+Torch counterpart of ``ssdx/model.py``.  Public layout is the JAX package's
+NHWC: ``forward(x [B,300,300,3])`` returns ``(loc [B,8732,4], cls
+[B,8732,C])`` in float32.  Inside, the convs run as NCHW-indexed tensors
+whose memory is channels-last (an NHWC input permuted to NCHW is exactly
+that), which is cuDNN's fast layout for bf16.
+
+Numerics: float32 parameters; activations and convs in ``dtype``
+(bfloat16 on the GPU); heads returned in float32.
+
+  conv1(2x64) mp conv2(2x128) mp conv3(3x256) mp[ceil] conv4(3x512) -> tap 38x38x512
+  mp conv5(3x512) conv6(3x3 d6 1024) conv7(1x1 1024)               -> tap 19x19x1024
+  conv8_2 (1x1 256, 3x3 s2 512)                                    -> tap 10x10x512
+  conv9_2 (1x1 128, 3x3 s2 256)                                    -> tap 5x5x256
+  conv10_2(1x1 128, 3x3 v 256; no BN on 3x3)                       -> tap 3x3x256
+  conv11_2(1x1 128, 3x3 v 256; no BN at all)                       -> tap 1x1x256
+
+Each tap runs ONE fused head conv whose output channels are
+``[k*4 box | k*C cls]``; it is flattened in (H, W, k) order to match the
+prior order of ``ssdx_torch/priors.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .priors import BOXES_PER_LOCATION, NUM_PRIORS
+
+__all__ = ["SSD300", "IMAGE_SIZE", "BACKBONE", "init_variables"]
+
+IMAGE_SIZE = 300
+
+# The 23 backbone convs in order: (cout, kernel, stride, padding, dilation, bn).
+BACKBONE = (
+    (64, 3, 1, 1, 1, True), (64, 3, 1, 1, 1, True),                            # conv1
+    (128, 3, 1, 1, 1, True), (128, 3, 1, 1, 1, True),                          # conv2
+    (256, 3, 1, 1, 1, True), (256, 3, 1, 1, 1, True), (256, 3, 1, 1, 1, True),  # conv3
+    (512, 3, 1, 1, 1, True), (512, 3, 1, 1, 1, True), (512, 3, 1, 1, 1, True),  # conv4
+    (512, 3, 1, 1, 1, True), (512, 3, 1, 1, 1, True), (512, 3, 1, 1, 1, True),  # conv5
+    (1024, 3, 1, 6, 6, True),                                                  # conv6
+    (1024, 1, 1, 0, 1, True),                                                  # conv7
+    (256, 1, 1, 0, 1, True), (512, 3, 2, 1, 1, True),                          # conv8
+    (128, 1, 1, 0, 1, True), (256, 3, 2, 1, 1, True),                          # conv9
+    (128, 1, 1, 0, 1, True), (256, 3, 1, 0, 1, False),                         # conv10
+    (128, 1, 1, 0, 1, False), (256, 3, 1, 0, 1, False),                        # conv11
+)
+# 2x2/2 max pool after these layers (True = ceil mode: 75 -> 38); the pool
+# after layer 9 follows the conv4_3 tap.
+_POOL_AFTER = {1: False, 3: False, 6: True, 9: False}
+_TAPS = (9, 14, 16, 18, 20, 22)
+_STEM_LAYERS = 2  # conv1_1, conv1_2: the fused stem kernel's part
+
+
+def _width(f: int, width_mult: float) -> int:
+    return max(8, int(f * width_mult) // 8 * 8)
+
+
+def backbone_channels(width_mult: float = 1.0) -> list[tuple[int, int]]:
+    """(cin, cout) of each backbone conv."""
+    out, cin = [], 3
+    for cout, *_ in BACKBONE:
+        cout = _width(cout, width_mult)
+        out.append((cin, cout))
+        cin = cout
+    return out
+
+
+class ConvBNRelu(nn.Module):
+    """Conv (+ eval-mode BatchNorm) + ReLU; BN statistics kept in float32."""
+
+    def __init__(self, cin, cout, kernel, stride, padding, dilation, use_bn):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, stride, padding, dilation)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        y = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
+                     c.padding, c.dilation)
+        if self.bn is not None:
+            y = F.batch_norm(y.float(), self.bn.running_mean, self.bn.running_var,
+                             self.bn.weight, self.bn.bias, False, 0.0,
+                             self.bn.eps).to(x.dtype)
+        return F.relu(y)
+
+
+class SSD300(nn.Module):
+    """SSD300 with a VGG16+BN backbone.
+
+    ``fold_bn=True`` builds the BN-free serving variant whose weights come
+    from :func:`ssdx_torch.export.fold_batchnorm`.  ``stem_input=True``
+    makes ``forward`` take the post-stem map ``[B,150,150,64]`` (computed by
+    :func:`ssdx_torch.ops.stem.stem_conv_pool`) and skip conv1_1, conv1_2
+    and the first pool; their weights stay in the module, which the stem
+    kernel reads.  ``width_mult`` scales every backbone channel count
+    (rounded to a multiple of 8, at least 8) for fast tests; the reference
+    architecture is ``width_mult=1.0``.
+    """
+
+    def __init__(self, num_classes: int, fold_bn: bool = False,
+                 stem_input: bool = False, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fold_bn = fold_bn
+        self.stem_input = stem_input
+        self.width_mult = width_mult
+        self.dtype = dtype
+        chans = backbone_channels(width_mult)
+        self.layers = nn.ModuleList(
+            ConvBNRelu(cin, cout, k, s, p, d, bn and not fold_bn)
+            for (cin, cout), (_, k, s, p, d, bn) in zip(chans, BACKBONE)
+        )
+        self.heads = nn.ModuleList(
+            nn.Conv2d(chans[t][1], k * (4 + num_classes), 3, padding=1)
+            for t, k in zip(_TAPS, BOXES_PER_LOCATION)
+        )
+
+    def forward(self, x: torch.Tensor):
+        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
+        taps = []
+        for i in range(_STEM_LAYERS if self.stem_input else 0, len(self.layers)):
+            x = self.layers[i](x)
+            if i in _TAPS:
+                taps.append(x)
+            if i in _POOL_AFTER:
+                x = F.max_pool2d(x, 2, 2, ceil_mode=_POOL_AFTER[i])
+
+        B, C = x.shape[0], self.num_classes
+        locs, clss = [], []
+        for t, k, head in zip(taps, BOXES_PER_LOCATION, self.heads):
+            y = F.conv2d(t, head.weight.to(t.dtype), head.bias.to(t.dtype), padding=1)
+            y = y.permute(0, 2, 3, 1)  # (H, W, k) order, as the priors
+            locs.append(y[..., : k * 4].reshape(B, -1, 4))
+            clss.append(y[..., k * 4 :].reshape(B, -1, C))
+        loc = torch.cat(locs, dim=1).float()
+        cls = torch.cat(clss, dim=1).float()
+        assert loc.shape[1] == NUM_PRIORS, loc.shape
+        return loc, cls
+
+
+def init_variables(num_classes: int, seed: int = 0, width_mult: float = 1.0) -> dict:
+    """Random ``{'params', 'batch_stats'}`` tree in the JAX package's layout.
+
+    Kernels are truncated normal (+-2 sigma) with variance 2/fan_out, biases
+    zero, BN at identity (scale 1, bias 0, mean 0, var 1) — the same
+    distributions as the JAX package's initializers, drawn from numpy.
+    """
+    rng = np.random.default_rng(seed)
+
+    def kernel(k, cin, cout):
+        std = np.sqrt(2.0 / (k * k * cout)) / 0.87962566103423978
+        z = rng.standard_normal((k, k, cin, cout))
+        while (bad := np.abs(z) > 2.0).any():
+            z[bad] = rng.standard_normal(int(bad.sum()))
+        return (z * std).astype(np.float32)
+
+    params: dict = {}
+    stats: dict = {}
+    chans = backbone_channels(width_mult)
+    for i, ((cin, cout), (_, k, *_, bn)) in enumerate(zip(chans, BACKBONE)):
+        mod = {"Conv_0": {"kernel": kernel(k, cin, cout),
+                          "bias": np.zeros(cout, np.float32)}}
+        if bn:
+            mod["BatchNorm_0"] = {"scale": np.ones(cout, np.float32),
+                                  "bias": np.zeros(cout, np.float32)}
+            stats[f"ConvBNRelu_{i}"] = {"BatchNorm_0": {
+                "mean": np.zeros(cout, np.float32), "var": np.ones(cout, np.float32)}}
+        params[f"ConvBNRelu_{i}"] = mod
+    for i, (t, k) in enumerate(zip(_TAPS, BOXES_PER_LOCATION)):
+        cin = chans[t][1]
+        for name, f in (("box", k * 4), ("cls", k * num_classes)):
+            params[f"{name}_head_{i}"] = {"kernel": kernel(3, cin, f),
+                                         "bias": np.zeros(f, np.float32)}
+    return {"params": params, "batch_stats": stats}

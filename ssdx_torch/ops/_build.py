@@ -1,0 +1,88 @@
+"""Build the CUDA sources in ``ssdx_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+with ``nvcc`` for ``sm_90a`` into ``ssdx_torch/_build/lib<name>-<hash>.so``
+(the hash covers the source and the flags, so an edited source rebuilds).
+No PyTorch headers are involved, which keeps a build to seconds.  Build
+errors propagate as ``RuntimeError`` with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["build", "load", "BUILD_DIR", "build_logs"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# nms.cu must not contract multiply-adds: its DIoU has to round like the
+# plain PyTorch version, operation by operation.
+_EXTRA = {"nms": ["-fmad=false"]}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()  # one build at a time within the process
+build_logs: dict[str, str] = {}  # nvcc's output (registers, spills) per source
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return exe
+
+
+def _flags(name: str) -> list[str]:
+    return _COMMON + _EXTRA.get(name, [])
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(*names: str) -> dict[str, Path]:
+    """Compile the named sources that are not built yet, all at once."""
+    with _lock:
+        return _compile(names)
+
+
+def _compile(names) -> dict[str, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for n, (p, tmp) in procs.items():
+        log, _ = p.communicate()
+        build_logs[n] = log
+        if p.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{n}.cu (exit {p.returncode}):\n{log}")
+        else:
+            os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build(name)[name]))
+        return _libs[name]

@@ -1,0 +1,92 @@
+"""Keep mask of exact greedy DIoU-NMS over score-sorted candidates.
+
+``nms_core_sorted(boxes [B,K,4], valid [B,K], thresh)`` returns the bool
+keep mask ``[B,K]`` in sorted order: box j is kept iff it is valid and no
+kept earlier box i has DIoU(i, j) > thresh.  On a CUDA tensor it launches
+the hand-written kernel of ``csrc/nms.cu`` (whose header gives its bound,
+design and why its mask is bit-exact); on a CPU tensor it runs
+:func:`nms_core_sorted_ref`, the plain PyTorch version, which is also the
+kernel's oracle on the card.  It replaces the JAX package's TPU kernel
+``ssdx/ops/pallas_nms.py::nms_core_sorted``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..boxes import pairwise_diou
+from . import _build
+
+__all__ = ["nms_core_sorted", "nms_core_sorted_ref", "launches"]
+
+launches = 0  # kernel launches by nms_core_sorted
+
+_lib = None
+
+
+def nms_core_sorted_ref(boxes: torch.Tensor, valid: torch.Tensor, thresh: float):
+    """Plain version: the alternating fixpoint of ``ssdx/nms.py``, batched.
+
+    Iterate ``s(j) = any i<j alive with DIoU(i,j) > thresh`` from "everyone
+    alive" until nothing changes; the fixpoint is exact greedy NMS.
+    """
+    n = boxes.shape[1]
+    after = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
+    sup = (pairwise_diou(boxes, boxes) > thresh) & after & valid[:, :, None]
+    s = sup.any(dim=1)
+    for _ in range(1, n):
+        new = (sup & ~s[:, :, None]).any(dim=1)
+        if torch.equal(new, s):
+            break
+        s = new
+    return valid & ~s
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("nms")
+        lib.ssdx_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.ssdx_nms_keep.restype = ctypes.c_int
+        lib.ssdx_nms_max_k.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def nms_core_sorted(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """Keep mask ``[B,K]`` (bool, sorted order) for greedy DIoU-NMS."""
+    global launches
+    dev = boxes.device
+    if dev.type == "cpu":
+        return nms_core_sorted_ref(boxes, valid, thresh)
+    if dev.type != "cuda":
+        raise ValueError(f"nms_core_sorted: unsupported device {dev}")
+    B, K, four = boxes.shape
+    if four != 4 or tuple(valid.shape) != (B, K) or valid.device != dev:
+        raise ValueError(f"nms_core_sorted: boxes {tuple(boxes.shape)}, valid "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError("nms_core_sorted takes float32 boxes and a bool mask")
+    lib = _kernel()
+    if K > lib.ssdx_nms_max_k():
+        raise ValueError(f"nms kernel takes K <= {lib.ssdx_nms_max_k()}, got {K}")
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads boxes as float4
+        boxes = boxes.clone()
+    v = valid.contiguous().view(torch.uint8)
+    sup = torch.empty((B, K, (K + 63) // 64), dtype=torch.int64, device=dev)
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ssdx_nms_keep(boxes.data_ptr(), v.data_ptr(), B, K, thresh,
+                                sup.data_ptr(), keep.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    # The temporaries above are freed on return while the kernel may still
+    # run; the caching allocator hands their memory only to later work on
+    # this same stream, which runs after the kernel.
+    if err:
+        raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
+    launches += 1
+    return keep

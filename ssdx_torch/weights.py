@@ -1,0 +1,84 @@
+"""Weights on disk -> the port's state dict.
+
+``load_params`` reads the weights-only exports of the JAX package's
+trainer (a pickle of ``{'params', 'batch_stats'}`` numpy trees, or the
+compressed float16 ``.npz`` bundle whose keys are slash-joined tree paths).
+``state_dict_from_jax`` maps that tree onto :class:`ssdx_torch.model.SSD300`:
+``ConvBNRelu_i/Conv_0`` -> ``layers.i.conv`` (HWIO -> OIHW),
+``ConvBNRelu_i/BatchNorm_0`` -> ``layers.i.bn``, and ``box_head_i`` +
+``cls_head_i`` -> the fused ``heads.i`` conv, box channels first.
+"""
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .model import BACKBONE
+
+__all__ = ["load_params", "state_dict_from_jax"]
+
+_NUM_HEADS = 6
+
+
+def load_params(path: str | Path) -> dict:
+    """Load a weights-only export (pickle or .npz bundle);
+    returns {'params', 'batch_stats'} of float32 numpy arrays."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"PK":  # zip container = np.savez bundle (suffix-agnostic)
+        out: dict = {}
+        with np.load(path) as z:
+            for key in z.files:
+                parts = key.split("/")
+                node = out
+                for p in parts[:-1]:
+                    node = node.setdefault(p, {})
+                node[parts[-1]] = z[key].astype(np.float32)
+        return out
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(kernel).permute(3, 2, 0, 1).contiguous()
+
+
+def state_dict_from_jax(variables: dict, fold_bn: bool) -> dict[str, torch.Tensor]:
+    """State dict of ``SSD300(fold_bn=fold_bn)`` from a JAX-layout tree.
+
+    With ``fold_bn=True`` the tree must already be folded
+    (:func:`ssdx_torch.export.fold_batchnorm`); otherwise it must carry
+    ``batch_stats`` for every BN layer.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    for i, (*_, has_bn) in enumerate(BACKBONE):
+        name = f"ConvBNRelu_{i}"
+        mod = params[name]
+        if fold_bn and "BatchNorm_0" in mod:
+            raise ValueError(f"{name} still has BatchNorm_0: fold the tree first")
+        sd[f"layers.{i}.conv.weight"] = _oihw(mod["Conv_0"]["kernel"])
+        sd[f"layers.{i}.conv.bias"] = _t(mod["Conv_0"]["bias"])
+        if has_bn and not fold_bn:
+            bn, st = mod["BatchNorm_0"], stats[name]["BatchNorm_0"]
+            sd[f"layers.{i}.bn.weight"] = _t(bn["scale"])
+            sd[f"layers.{i}.bn.bias"] = _t(bn["bias"])
+            sd[f"layers.{i}.bn.running_mean"] = _t(st["mean"])
+            sd[f"layers.{i}.bn.running_var"] = _t(st["var"])
+            sd[f"layers.{i}.bn.num_batches_tracked"] = torch.tensor(0)
+    for i in range(_NUM_HEADS):
+        box, cls = params[f"box_head_{i}"], params[f"cls_head_{i}"]
+        sd[f"heads.{i}.weight"] = _oihw(
+            np.concatenate([np.asarray(box["kernel"]), np.asarray(cls["kernel"])], -1))
+        sd[f"heads.{i}.bias"] = _t(
+            np.concatenate([np.asarray(box["bias"]), np.asarray(cls["bias"])]))
+    return sd
