@@ -20,7 +20,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. serving: the HTTP app answers POST /predict with a PNG for each scene;
   7. timing with CUDA events after warm-up, on distinct inputs: bs=32
      predict_batched images/s, and each kernel beside its plain version,
-     its library yardstick and its bound.
+     its library yardstick and its bound;
+  8. the train-mode stem kernel (csrc/stem_train.cu) against its plain
+     version, forward and backward at bs=16 in bf16: p within
+     max |k - r| / (|r| + 1) < 0.05, each batch statistic within 1e-3 of its
+     largest magnitude, each of dw1, dg1, dbe1, dw2, dg2, dbe2 within 0.05
+     L2-relative, and dx, db1, db2 exactly 0;
+  9. the training path: full-width SSD300 in bf16 at bs=16 with 16 GT
+     boxes per image, 5 train steps with the stem kernel against 5 with
+     fused_stem=False from the same variables (losses finite, within 2 %
+     step by step, step 5 below step 1), then fit for one epoch over 3
+     batches with an eval pass (NMS kernel) and a checkpoint that
+     load_checkpoint resumes at epoch 1; the launch counters are set to 0
+     just before this path and read just after;
+ 10. timing: the bs=16 train step with and without the stem kernel, and
+     the stem kernel's forward + backward beside its plain version, its
+     library yardstick (cuDNN) and its bound.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -37,12 +52,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssdx_torch import priors as P
 from ssdx_torch.api import Detector
+from ssdx_torch.config import EvalConfig, TrainConfig
+from ssdx_torch.model import SSD300, init_variables
 from ssdx_torch.ops import _build
 from ssdx_torch.ops import nms as nms_ops
 from ssdx_torch.ops import stem as stem_ops
+from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
+from ssdx_torch.train.checkpoint import load_checkpoint
+from ssdx_torch.train.loop import fit
+from ssdx_torch.train.schedule import build_optimizer
+from ssdx_torch.train.step import Batch, create_train_state, make_eval_step, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16 = 989e12
@@ -301,6 +324,234 @@ def timing(dev, det, launches, errs):
     return kernels
 
 
+# ---------------------------------------------------------------- phase 8
+
+TRAIN_BS = 16
+STEM_GRAD_NAMES = ("dx", "dw1", "db1", "dg1", "dbe1", "dw2", "db2", "dg2", "dbe2")
+
+
+def stem_train_inputs(dev, n_batches=4, seed=0):
+    """bf16 images at bs=16 and the stem's weights at the scales of
+    stem_inputs, plus BN scales near 1 and shifts near 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, std, mean=0.0: torch.randn(*s, generator=g, device=dev) * std + mean
+    w = (r(64, 3, 3, 3, std=0.15), r(64, std=0.3), r(64, std=0.1, mean=1.0), r(64, std=0.1),
+         r(64, 64, 3, 3, std=0.08), r(64, std=0.3), r(64, std=0.1, mean=1.0), r(64, std=0.1))
+    xs = [r(TRAIN_BS, 300, 300, 3, std=1.0).to(torch.bfloat16) for _ in range(n_batches)]
+    dps = [r(TRAIN_BS, 150, 150, 64, std=1.0).to(torch.bfloat16) for _ in range(n_batches)]
+    return xs, dps, w
+
+
+def stem_train_fwd_bwd(fn, x, dp, w):
+    """One forward and backward of fn; returns (outputs, grads of x and w)."""
+    ps = [t.detach().clone().requires_grad_() for t in w]
+    xx = x.detach().clone().requires_grad_()
+    out = fn(xx, *ps)
+    torch.autograd.backward(out[0], dp)
+    return [o.detach() for o in out], [xx.grad] + [p.grad for p in ps]
+
+
+def check_stem_train(dev) -> dict:
+    xs, dps, w = stem_train_inputs(dev)
+    kout, kgrad = stem_train_fwd_bwd(stem_train_ops.stem_train, xs[0], dps[0], w)
+    rout, rgrad = stem_train_fwd_bwd(stem_train_ops.stem_train_ref, xs[0], dps[0], w)
+    torch.cuda.synchronize()
+    kp, rp = kout[0].float(), rout[0].float()
+    assert kp.shape == rp.shape == (TRAIN_BS, 150, 150, 64) and kout[0].dtype == torch.bfloat16
+    rel = ((kp - rp).abs() / (rp.abs() + 1.0)).max().item()
+    abs_err = (kp - rp).abs().max().item()
+    log(f"stem_train kernel vs plain (bs={TRAIN_BS}, bf16): p max |k-r|/(|r|+1) = {rel:.3e} "
+        f"(limit 0.05), max |k-r| = {abs_err:.3e}")
+    assert torch.isfinite(kp).all() and rel < 0.05, rel
+    for name, k, r in zip(("mean1", "var1", "mean2", "var2"), kout[1:], rout[1:]):
+        e = ((k - r).abs().max() / r.abs().max()).item()
+        log(f"  {name}: max |k-r| / max |r| = {e:.3e} (limit 1e-3)")
+        assert e < 1e-3, (name, e)
+    for name, k, r in zip(STEM_GRAD_NAMES, kgrad, rgrad):
+        if name in ("dx", "db1", "db2"):
+            log(f"  {name}: max |k| = {k.abs().max().item()} (must be exactly 0)")
+            assert k.abs().max().item() == 0.0, name
+            continue
+        e = ((k - r).norm() / r.norm()).item()
+        log(f"  {name}: |k-r|/|r| = {e:.3e} (limit 0.05)")
+        assert torch.isfinite(k).all() and e < 0.05, (name, e)
+    return {"max_abs_err": abs_err}
+
+
+# ---------------------------------------------------------------- phase 9
+
+TRAIN_STEPS = 5
+LOSS_RTOL = 0.02  # kernel route's loss against fused_stem=False, step by step
+TRAIN_CFG, EVAL_CFG = TrainConfig(), EvalConfig()
+
+
+def train_batch(dev, seed, B=TRAIN_BS, G=16) -> Batch:
+    """A bs=16 batch with 16 GT boxes per image, drawn as benchmarks/run.py
+    (bench_train) draws its batch."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.1, 0.6, (B, G, 2)).astype(np.float32)
+    sz = rng.uniform(0.05, 0.3, (B, G, 2)).astype(np.float32)
+    images = rng.normal(0, 1, (B, 300, 300, 3)).astype(np.float32)
+    labels = rng.integers(0, 5, (B, G)).astype(np.int32)
+    boxes = np.concatenate([lo, np.minimum(lo + sz, 1.0)], -1)
+    return Batch(*(torch.as_tensor(a, device=dev)
+                   for a in (images, boxes, labels, np.ones((B, G), bool))))
+
+
+def train_setup(dev, fused):
+    """Full-width bf16 SSD300 from init_variables(6, seed=0), SGD-Nesterov
+    with the warmup-cosine schedule (no warmup, base_lr 1e-2)."""
+    model = SSD300(6, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
+    opt, sched = build_optimizer(model.parameters(), steps_per_epoch=100, warmup_epochs=0,
+                                 base_lr=1e-2, momentum=TRAIN_CFG.momentum,
+                                 weight_decay=TRAIN_CFG.weight_decay)
+    state = create_train_state(model, opt, sched, init_variables(6, seed=0))
+    pri = P.create_priors()
+    step = make_train_step(model, pri, P.priors_xyxy(pri), iou_thresh=TRAIN_CFG.iou_thresh,
+                           neg_pos_ratio=TRAIN_CFG.neg_pos_ratio, fused_stem=fused)
+    ev = make_eval_step(model, pri, P.priors_xyxy(pri), iou_thresh=TRAIN_CFG.iou_thresh,
+                        neg_pos_ratio=TRAIN_CFG.neg_pos_ratio,
+                        score_thresh=EVAL_CFG.score_thresh, nms_thresh=EVAL_CFG.nms_thresh,
+                        max_per_img=EVAL_CFG.max_per_img)
+    return state, step, ev
+
+
+class _Tail:
+    """A wrap-padded tail batch: ``count`` real images."""
+
+    def __init__(self, batch, count):
+        self.batch, self.count = batch, count
+
+
+def train_path(dev) -> dict:
+    import tempfile
+
+    batch = train_batch(dev, 0)
+    state, step, _ = train_setup(dev, fused=False)
+    plain = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        plain.append(float(m["loss"]))
+    del state, step
+    torch.cuda.empty_cache()
+
+    state, step, ev = train_setup(dev, fused=True)
+    stem_train_ops.launches = stem_ops.launches = nms_ops.launches = 0
+    kern = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        kern.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    per_steps = stem_train_ops.launches
+    log(f"train steps (bs={TRAIN_BS}, bf16, 16 GT/image): losses with the stem kernel "
+        f"{[round(v, 4) for v in kern]}, with fused_stem=False {[round(v, 4) for v in plain]}; "
+        f"stem_train launches {per_steps} in {TRAIN_STEPS} steps")
+    assert per_steps == TRAIN_STEPS, per_steps
+    assert all(np.isfinite(kern)) and all(np.isfinite(plain)), (kern, plain)
+    for i, (k, p) in enumerate(zip(kern, plain)):
+        assert abs(k - p) <= LOSS_RTOL * abs(p), (i, k, p)
+    assert kern[-1] < kern[0] and plain[-1] < plain[0], (kern, plain)
+
+    batches = [batch, train_batch(dev, 1), train_batch(dev, 2)]
+    val = [batches[1], _Tail(batches[2], TRAIN_BS // 2)]
+    with tempfile.TemporaryDirectory() as d:
+        state, results = fit(step, ev, state, lambda: batches, lambda: val, epochs=1,
+                             save_model=True, save_dir=d, log=log)
+        torch.cuda.synchronize()
+        launches = {"stem_train": stem_train_ops.launches, "nms": nms_ops.launches,
+                    "stem": stem_ops.launches}
+        log(f"fit: 1 epoch over {len(batches)} batches, train loss "
+            f"{results['train_loss'][0]:.4f}, test loss {results['test_loss'][0]:.4f}, "
+            f"mAP@0.5 {results['mAP'][0]['map_50']:.4f}; kernel launches on the training "
+            f"path {launches}")
+        assert np.isfinite(results["train_loss"][0]) and np.isfinite(results["test_loss"][0])
+        assert launches["stem_train"] == TRAIN_STEPS + len(batches), launches
+        assert launches["nms"] > 0, launches
+        fresh, _, _ = train_setup(dev, fused=True)
+        fresh, start_epoch, best, _ = load_checkpoint(f"{d}/last.ckpt", fresh)
+        log(f"load_checkpoint(last.ckpt): start_epoch {start_epoch}, step {fresh.step}")
+        assert start_epoch == 1 and fresh.step == TRAIN_STEPS + len(batches)
+    return {"launches": launches, "kern": kern, "plain": plain}
+
+
+# --------------------------------------------------------------- phase 10
+
+
+def stem_train_bound(B):
+    """Least time for the stem's forward + backward on the card: operations
+    of the five contractions at the bf16 peak against the bytes of the
+    inputs (image, dp, weights) read once and outputs (p, statistics,
+    gradients) written once."""
+    ops = 2 * B * 300 * 300 * 64 * (27 + 576 + 576 + 576 + 27)
+    params = 64 * 27 + 64 * 576 + 6 * 64
+    nbytes = (B * 300 * 300 * 3 * 2 + B * 150 * 150 * 64 * 2 * 2  # x, dp, p
+              + 2 * params * 4 + 4 * 64 * 4)                      # weights, grads, stats
+    t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), ops, nbytes
+
+
+def train_timing(dev, launches, err) -> dict:
+    batches = [train_batch(dev, 10 + i) for i in range(4)]
+    step_ms = {}
+    for label, fused in (("kernel", True), ("plain", False), ("plain", False),
+                         ("kernel", True)):  # in turns
+        state, step, _ = train_setup(dev, fused)
+        holder = {"state": state}
+
+        def one(b):
+            holder["state"], m = step(holder["state"], b)
+
+        step_ms.setdefault(label, []).append(cuda_ms(one, batches, iters=10, warmup=3))
+        del state, step, holder
+        torch.cuda.empty_cache()
+    for label, ms in step_ms.items():
+        log(f"train step bs={TRAIN_BS} bf16 ({'stem kernel' if label == 'kernel' else 'fused_stem=False'}): "
+            + ", ".join(f"{t:.3f} ms ({TRAIN_BS * 1e3 / t:.1f} images/s)" for t in ms))
+
+    xs, dps, w = stem_train_inputs(dev, seed=4)
+    ps = [t.detach().clone().requires_grad_() for t in w]
+
+    def fwd_bwd(fn):
+        def run(a):
+            for p in ps:
+                p.grad = None
+            torch.autograd.backward(fn(a[0], *ps)[0], a[1])
+        return run
+
+    ins = list(zip(xs, dps))
+    k_ms = cuda_ms(fwd_bwd(stem_train_ops.stem_train), ins, iters=20, warmup=3)
+    p_ms = cuda_ms(fwd_bwd(stem_train_ops.stem_train_ref), ins, iters=5, warmup=1)
+    bf = torch.bfloat16
+    lw = [t.detach().to(bf).requires_grad_() if t.dim() == 4 else t.detach().clone().requires_grad_()
+          for t in w]
+    lw[0] = lw[0].detach().contiguous(memory_format=torch.channels_last).requires_grad_()
+    lw[4] = lw[4].detach().contiguous(memory_format=torch.channels_last).requires_grad_()
+
+    def library(a):
+        w1, b1, g1, be1, w2, b2, g2, be2 = lw
+        for t in lw:
+            t.grad = None
+        x = a[0].permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        y = F.conv2d(x, w1, b1.to(bf), padding=1)
+        y = F.relu(F.batch_norm(y, None, None, g1, be1, training=True, eps=1e-5))
+        y = F.conv2d(y, w2, b2.to(bf), padding=1)
+        y = F.relu(F.batch_norm(y, None, None, g2, be2, training=True, eps=1e-5))
+        torch.autograd.backward(F.max_pool2d(y, 2), a[1].permute(0, 3, 1, 2))
+
+    lib_ms = cuda_ms(library, ins, iters=20, warmup=3)
+    bound, bound_by, ops, nbytes = stem_train_bound(TRAIN_BS)
+    log(f"stem_train kernel fwd+bwd bs={TRAIN_BS}: {k_ms:.4f} ms, library (cuDNN conv+BN+ReLU "
+        f"x2 + pool, fwd+bwd, bf16) {lib_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
+        f"by {bound_by} ({ops / 1e9:.1f} GFLOP bf16, {nbytes / 1e6:.1f} MB), "
+        f"1 launch counted per forward")
+    return {
+        "name": "stem_train", "route": "cuda", "source": "ssdx_torch/csrc/stem_train.cu",
+        "replaces": "ssdx/ops/pallas_stem_train.py:718", "launches": launches["stem_train"],
+        "max_abs_err": err["max_abs_err"], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": lib_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
@@ -315,17 +566,23 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    _build.build("stem", "nms")
+    _build.build("stem", "nms", "stem_train")
     for name, out in sorted(_build.build_logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log(f"built csrc/stem.cu and csrc/nms.cu for sm_90a in {time.perf_counter() - t:.1f} s")
+    log(f"built csrc/stem.cu, csrc/nms.cu and csrc/stem_train.cu for sm_90a in "
+        f"{time.perf_counter() - t:.1f} s")
 
     errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
     det, launches = main_path(dev)
     serve(det)
     kernels = timing(dev, det, launches, errs)
+    del det
+    torch.cuda.empty_cache()
+    errs["stem_train"] = check_stem_train(dev)
+    train = train_path(dev)
+    kernels.append(train_timing(dev, train["launches"], errs["stem_train"]))
     log(f"chip_smoke phases done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """ssdx_torch — SSD300 automotive object detection in PyTorch for NVIDIA Hopper.
 
 The PyTorch/CUDA counterpart of the JAX package ``ssdx``: the same network,
-priors, post-processing and serving contract, with the two kernels of the
-serving path (the fused conv1 stem and greedy DIoU-NMS) written by hand in
+priors, post-processing, serving contract and training step, loop and
+checkpoints, with the kernels of those paths (the fused conv1 stem, greedy
+DIoU-NMS, and the train-mode stem with its backward) written by hand in
 CUDA C++ for ``sm_90a`` (``ssdx_torch/csrc``).  Public functions keep the
 JAX package's NHWC layout so the two can be compared like with like.
 

@@ -7,7 +7,9 @@ whose memory is channels-last (an NHWC input permuted to NCHW is exactly
 that), which is cuDNN's fast layout for bf16.
 
 Numerics: float32 parameters; activations and convs in ``dtype``
-(bfloat16 on the GPU); heads returned in float32.
+(bfloat16 on the GPU); BatchNorm in float32; heads returned in float32.
+``forward(x, train=True)`` is the training mode (batch-statistics BN, as
+flax's ``use_running_average=False`` with momentum 0.9 and eps 1e-5).
 
   conv1(2x64) mp conv2(2x128) mp conv3(3x256) mp[ceil] conv4(3x512) -> tap 38x38x512
   mp conv5(3x512) conv6(3x3 d6 1024) conv7(1x1 1024)               -> tap 19x19x1024
@@ -29,7 +31,7 @@ from torch import nn
 
 from .priors import BOXES_PER_LOCATION, NUM_PRIORS
 
-__all__ = ["SSD300", "IMAGE_SIZE", "BACKBONE", "init_variables"]
+__all__ = ["SSD300", "IMAGE_SIZE", "BACKBONE", "init_variables", "update_running_stats"]
 
 IMAGE_SIZE = 300
 
@@ -68,22 +70,46 @@ def backbone_channels(width_mult: float = 1.0) -> list[tuple[int, int]]:
     return out
 
 
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+
+
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """flax's running-average update with the batch's biased ``var``."""
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+
+
 class ConvBNRelu(nn.Module):
-    """Conv (+ eval-mode BatchNorm) + ReLU; BN statistics kept in float32."""
+    """Conv (+ BatchNorm) + ReLU; BN statistics kept in float32.
+
+    ``train=True`` normalises with the batch mean and the biased batch
+    variance, one-pass ``E[y^2] - E[y]^2`` clamped at 0 in float32, as flax
+    does, and updates the running statistics from them under ``no_grad``.
+    (``F.batch_norm(training=True)`` would store the unbiased variance.)
+    """
 
     def __init__(self, cin, cout, kernel, stride, padding, dilation, use_bn):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding, dilation)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5) if use_bn else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c = self.conv
         y = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
                      c.padding, c.dilation)
-        if self.bn is not None:
-            y = F.batch_norm(y.float(), self.bn.running_mean, self.bn.running_var,
-                             self.bn.weight, self.bn.bias, False, 0.0,
-                             self.bn.eps).to(x.dtype)
+        bn = self.bn
+        if bn is not None and train:
+            yf = y.float()
+            mean = yf.mean(dim=(0, 2, 3))
+            var = torch.clamp((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            update_running_stats(bn, mean.detach(), var.detach())
+            mul = torch.rsqrt(var + bn.eps) * bn.weight
+            y = ((yf - mean[:, None, None]) * mul[:, None, None]
+                 + bn.bias[:, None, None]).to(x.dtype)
+        elif bn is not None:
+            y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
+                             bn.weight, bn.bias, False, 0.0, bn.eps).to(x.dtype)
         return F.relu(y)
 
 
@@ -119,11 +145,17 @@ class SSD300(nn.Module):
             for t, k in zip(_TAPS, BOXES_PER_LOCATION)
         )
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False, stem_input: bool | None = None):
+        """``train=True`` runs BatchNorm on batch statistics and updates the
+        running ones.  ``stem_input`` overrides the module's own setting for
+        this call: the train step's fused route hands the pooled stem map of
+        :func:`ssdx_torch.ops.stem_train.stem_train` to the full model."""
+        if stem_input is None:
+            stem_input = self.stem_input
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
         taps = []
-        for i in range(_STEM_LAYERS if self.stem_input else 0, len(self.layers)):
-            x = self.layers[i](x)
+        for i in range(_STEM_LAYERS if stem_input else 0, len(self.layers)):
+            x = self.layers[i](x, train)
             if i in _TAPS:
                 taps.append(x)
             if i in _POOL_AFTER:

@@ -1,10 +1,13 @@
-"""Hand-written CUDA kernels of the serving path and their plain versions.
+"""Hand-written CUDA kernels of the port and their plain versions.
 
 * :mod:`ssdx_torch.ops.stem` — the fused conv1 stem (``csrc/stem.cu``);
-* :mod:`ssdx_torch.ops.nms` — the greedy DIoU-NMS keep mask (``csrc/nms.cu``).
+* :mod:`ssdx_torch.ops.nms` — the greedy DIoU-NMS keep mask (``csrc/nms.cu``);
+* :mod:`ssdx_torch.ops.stem_train` — the train-mode stem, forward and
+  backward (``csrc/stem_train.cu``).
 
 A wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor (or raises); it never falls back.
 Each module keeps a plain integer ``launches`` that its wrapper bumps once
-per kernel launch.
+per kernel launch; ``stem_train`` bumps it once per forward, which launches
+the forward's kernels (its backward's launches follow from that forward).
 """

@@ -7,6 +7,8 @@ compressed float16 ``.npz`` bundle whose keys are slash-joined tree paths).
 ``ConvBNRelu_i/Conv_0`` -> ``layers.i.conv`` (HWIO -> OIHW),
 ``ConvBNRelu_i/BatchNorm_0`` -> ``layers.i.bn``, and ``box_head_i`` +
 ``cls_head_i`` -> the fused ``heads.i`` conv, box channels first.
+``variables_from_torch`` is its inverse: a model's weights back to that
+tree, for comparisons with the JAX package and for weights-only exports.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ import numpy as np
 import torch
 
 from .model import BACKBONE
+from .priors import BOXES_PER_LOCATION
 
-__all__ = ["load_params", "state_dict_from_jax"]
+__all__ = ["load_params", "state_dict_from_jax", "variables_from_torch"]
 
 _NUM_HEADS = 6
 
@@ -82,3 +85,34 @@ def state_dict_from_jax(variables: dict, fold_bn: bool) -> dict[str, torch.Tenso
         sd[f"heads.{i}.bias"] = _t(
             np.concatenate([np.asarray(box["bias"]), np.asarray(cls["bias"])]))
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().contiguous().numpy()
+
+
+def _hwio(weight: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(_np(weight).transpose(2, 3, 1, 0))
+
+
+def variables_from_torch(model) -> dict:
+    """``{'params', 'batch_stats'}`` float32 numpy tree in the JAX layout
+    from an :class:`ssdx_torch.model.SSD300` (the inverse of
+    :func:`state_dict_from_jax`)."""
+    params: dict = {}
+    stats: dict = {}
+    for i, layer in enumerate(model.layers):
+        name = f"ConvBNRelu_{i}"
+        mod = {"Conv_0": {"kernel": _hwio(layer.conv.weight), "bias": _np(layer.conv.bias)}}
+        if layer.bn is not None:
+            mod["BatchNorm_0"] = {"scale": _np(layer.bn.weight), "bias": _np(layer.bn.bias)}
+            stats[name] = {"BatchNorm_0": {"mean": _np(layer.bn.running_mean),
+                                           "var": _np(layer.bn.running_var)}}
+        params[name] = mod
+    for i, (head, k) in enumerate(zip(model.heads, BOXES_PER_LOCATION)):
+        kernel, bias = _hwio(head.weight), _np(head.bias)
+        params[f"box_head_{i}"] = {"kernel": np.ascontiguousarray(kernel[..., : 4 * k]),
+                                   "bias": bias[: 4 * k]}
+        params[f"cls_head_{i}"] = {"kernel": np.ascontiguousarray(kernel[..., 4 * k:]),
+                                   "bias": bias[4 * k:]}
+    return {"params": params, "batch_stats": stats}

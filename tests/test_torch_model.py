@@ -12,7 +12,7 @@ from ssdx.model import SSD300 as JaxSSD300
 from ssdx_torch import resolve_device
 from ssdx_torch.export import fold_batchnorm
 from ssdx_torch.model import SSD300, backbone_channels, init_variables
-from ssdx_torch.weights import state_dict_from_jax
+from ssdx_torch.weights import state_dict_from_jax, variables_from_torch
 from torch_parity import flatten, random_variables
 
 WM = 0.25
@@ -46,6 +46,31 @@ def test_forward_matches_jax(variables, fold_bn, stem_input):
         ref = np.asarray(ref)
         err = np.abs(got.numpy() - ref).max()
         assert err <= 1e-3 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def test_train_forward_matches_jax(variables):
+    """forward(train=True): batch-statistics BN with flax's biased variance,
+    and the running statistics updated as 0.9 * old + 0.1 * batch.  At B=2
+    the BN layers see 50 (5x5 maps) to 180,000 values per channel, so an
+    unbiased variance would be up to 2 % larger and move a running variance
+    by more than the limit.  Outputs within 1e-3 of their max, statistics
+    within 1e-4 of theirs."""
+    x = np.random.default_rng(6).normal(0, 1, (2, 300, 300, 3)).astype(np.float32)
+    (ref_loc, ref_cls), mutated = JaxSSD300(num_classes=6, width_mult=WM).apply(
+        variables, x, train=True, mutable=["batch_stats"])
+    model = SSD300(6, width_mult=WM)
+    model.load_state_dict(state_dict_from_jax(variables, False))
+    with torch.no_grad():
+        loc, cls = model(torch.as_tensor(x), train=True)
+    for got, ref in ((loc, ref_loc), (cls, ref_cls)):
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-3 * np.abs(ref).max()
+    ref_stats = flatten(mutated["batch_stats"])
+    got_stats = flatten(variables_from_torch(model)["batch_stats"])
+    assert sorted(ref_stats) == sorted(got_stats)
+    for k, ref in ref_stats.items():
+        err = np.abs(got_stats[k] - ref).max() / np.abs(ref).max()
+        assert err < 1e-4, (k, err)
 
 
 def test_init_variables_tree_matches_jax_layout():
