@@ -35,13 +35,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
      just before this path and read just after;
  10. timing: the bs=16 train step with and without the stem kernel, and
      the stem kernel's forward + backward beside its plain version, its
-     library yardstick (cuDNN) and its bound.
+     library yardstick (cuDNN) and its bound;
+ 11. the int8 conv kernels (csrc/int8_conv.cu) against their plain version,
+     bit for bit (int8 output and bf16 tap), at full width and bs=32 on one
+     layer of each geometry: ConvBNRelu_2 (150x150, 64->128), _9 (38x38,
+     512->512, both outputs), _13 (dilation 6), _16 (stride 2, both), _14
+     (1x1, both), _22 (3x3 valid -> 1x1, tap only), operands from a seed over
+     the full +-127 range; then the whole walk on the demo weights and the
+     three scenes: every layer's kernel output against the plain version
+     (bit for bit) and against the dividing requantization of
+     quant.apply_int8 (at most one int8 step, counted), and the heads of
+     apply_int8_kernels against quant.apply_int8 within 0.5 with under 5 %
+     of elements past 0.05; then the bare matmuls of the int8 probe
+     (tools/bench_int8_mm.py, 2048^3) against torch._int_mm and their plain
+     versions: int8 exact, bf16 within 1e-3;
+ 12. the int8 path: create_detector() under SSDX_INT8=1 and predict_pil on
+     the three scenes, the launch counters set to 0 just before and read
+     just after (21 int8 conv launches per forward: 16 of the 3x3 kernel, 5
+     of the 1x1), detection_agreement with the bf16 detector of phase 5 at a
+     match rate of at least 0.8, and POST /predict for each scene;
+ 13. timing: bs=32 predict_batched in int8 beside bf16, in turns; the
+     post-stem walk in int8 beside the bf16 SSD300(stem_input=True) forward;
+     each checked layer's kernel beside its plain version, its bound and its
+     library yardstick (torch._int_mm plus the elementwise epilogue for the
+     1x1 layer; for the 3x3 layers cuDNN's bf16 conv of the same layer,
+     since no single PyTorch call computes an int8 conv).
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -53,15 +78,18 @@ import torch
 import torch.nn.functional as F
 
 from ssdx_torch import priors as P
+from ssdx_torch import quant
 from ssdx_torch.api import Detector
 from ssdx_torch.config import EvalConfig, TrainConfig
 from ssdx_torch.model import SSD300, init_variables
 from ssdx_torch.ops import _build
+from ssdx_torch.ops import int8_conv as int8_ops
 from ssdx_torch.ops import nms as nms_ops
 from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
+from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.train.checkpoint import load_checkpoint
 from ssdx_torch.train.loop import fit
 from ssdx_torch.train.schedule import build_optimizer
@@ -69,6 +97,7 @@ from ssdx_torch.train.step import Batch, create_train_state, make_eval_step, mak
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 NMS_OPS_PER_PAIR = 31  # float32 operations of one DIoU + compare (csrc/nms.cu)
@@ -552,6 +581,284 @@ def train_timing(dev, launches, err) -> dict:
     }
 
 
+# --------------------------------------------------------------- phase 11
+
+# (name, H, cin, cout, k, stride, dilation, pad, emit): one layer of each
+# geometry of the int8 backbone, at full width
+INT8_LAYERS = (
+    ("ConvBNRelu_2", 150, 64, 128, 3, 1, 1, 1, "int8"),
+    ("ConvBNRelu_9", 38, 512, 512, 3, 1, 1, 1, "both"),
+    ("ConvBNRelu_13", 19, 512, 1024, 3, 1, 6, 6, "int8"),
+    ("ConvBNRelu_16", 19, 256, 512, 3, 2, 1, 1, "both"),
+    ("ConvBNRelu_14", 19, 1024, 1024, 1, 1, 1, 0, "both"),
+    ("ConvBNRelu_22", 3, 128, 256, 3, 1, 1, 0, "f32"),
+)
+# Heads of the kernel walk (reciprocal multiply) against quant.apply_int8
+# (division): max |diff|, and the share of elements past 0.05.  A handful of
+# requantized values differ by one int8 step, each step is 1/127 of its
+# channel's range, and every later rounding near a boundary can flip with it,
+# so at full width both limits are looser than the 0.25 and 1 % that hold at
+# width 0.25: twice what the three scenes show (0.24 and 2.5 %).
+HEAD_ATOL, HEAD_FRAC = 0.5, 0.05
+
+
+def int8_layer_inputs(dev, layer, n_batches=1, seed=0):
+    """int8 activations and weights over the full +-127 range, and scales
+    that spread the requantized output over the int8 grid."""
+    name, H, cin, cout, k, *_ = layer
+    g = torch.Generator(device=dev).manual_seed(seed + H + cin)
+    ri = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    ru = lambda lo, hi: torch.rand(cout, generator=g, device=dev) * (hi - lo) + lo
+    xs = [ri(BS, H, H, cin) for _ in range(n_batches)]
+    kq = ri(cout, cin, k, k).contiguous(memory_format=torch.channels_last)
+    acc_std = (k * k * cin) ** 0.5 * 127 * 127 / 3
+    ws = ru(0.5, 1.5) / acc_std
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    ns = ru(0.01, 0.03)
+    return xs, (kq, ws, bias, ns)
+
+
+def int8_layer_call(fn, x, w, layer):
+    *_, stride, dilation, pad, emit = layer
+    kq, ws, bias, ns = w
+    return fn(x, kq, ws, bias, None if emit == "f32" else ns, stride=stride,
+              dilation=dilation, pad=pad, emit=emit, tap_dtype=torch.bfloat16)
+
+
+def check_int8_layers(dev) -> dict:
+    worst = {"conv3": 0.0, "mm": 0.0}
+    for layer in INT8_LAYERS:
+        xs, w = int8_layer_inputs(dev, layer)
+        got = int8_layer_call(int8_ops.int8_conv, xs[0], w, layer)
+        ref = int8_layer_call(int8_ops.int8_conv_ref, xs[0], w, layer)
+        torch.cuda.synchronize()
+        got, ref = (o if isinstance(o, tuple) else (o,) for o in (got, ref))
+        parts = []
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and g.dtype == r.dtype, (g.shape, r.shape, g.dtype)
+            bad = int((g != r).sum())
+            err = (g.float() - r.float()).abs().max().item()
+            kind = "int8" if g.dtype == torch.int8 else "bf16 tap"
+            spread = f", {g.unique().numel()} distinct values" if g.dtype == torch.int8 else ""
+            parts.append(f"{kind} {tuple(g.shape)}: {bad} mismatches{spread}")
+            key = "mm" if layer[4] == 1 else "conv3"
+            worst[key] = max(worst[key], err)
+            assert bad == 0 and torch.isfinite(g.float()).all(), (layer[0], kind, bad, err)
+        log(f"int8 kernel vs plain, {layer[0]} (bs={BS}, {layer[1]}x{layer[1]}, "
+            f"{layer[2]}->{layer[3]}, k={layer[4]} s={layer[5]} d={layer[6]} p={layer[7]}, "
+            f"emit={layer[8]}): " + "; ".join(parts))
+    return {k: {"max_abs_err": v} for k, v in worst.items()}
+
+
+def scene_images(det):
+    from PIL import Image
+
+    scenes = sorted(STATIC_DIR.glob("example_*.jpg"))
+    assert len(scenes) == 3, scenes
+    return np.concatenate([det.preprocess_pil(Image.open(p)) for p in scenes])
+
+
+def check_int8_walk(det8):
+    """The 21 layers of the demo network on the three scenes, layer by
+    layer on the kernel walk's own int8 inputs, then the heads."""
+    qp = det8.quant_params
+    feats = det8._stem(torch.as_tensor(scene_images(det8), device=det8.device))
+    topo = quant._TOPOLOGY
+    xq = quant._quantize_act(feats.float(), qp.layers[topo[0].name].in_scale)
+    steps = total = 0
+    for i, spec in enumerate(topo):
+        ql = qp.layers[spec.name]
+        last = i + 1 == len(topo)
+        ns = None if last else qp.layers[topo[i + 1].name].in_scale
+        kw = dict(stride=spec.stride, dilation=spec.dilation, pad=spec.pad,
+                  emit="f32" if last else "both", tap_dtype=torch.float32)
+        got = int8_ops.int8_conv(xq, ql.kernel_q, ql.w_scale, ql.bias, ns, **kw)
+        ref = int8_ops.int8_conv_ref(xq, ql.kernel_q, ql.w_scale, ql.bias, ns, **kw)
+        if last:
+            assert torch.equal(got, ref), spec.name
+            break
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), spec.name
+        divided = quant._quantize_act(ref[1], ns)  # quant.apply_int8's requantization
+        d = (got[0].int() - divided.int()).abs()
+        assert int(d.max()) <= 1, (spec.name, int(d.max()))
+        steps, total = steps + int(d.sum()), total + d.numel()
+        xq = quant._max_pool(got[0], spec.pool == "ceil") if spec.pool else got[0]
+    log(f"int8 walk, demo weights, 3 scenes: all 21 layers equal their plain version bit "
+        f"for bit (int8 and f32 tap); reciprocal against division: {steps} of {total} "
+        f"requantized values differ, each by one int8 step")
+    assert steps < 0.01 * total, (steps, total)
+
+    torch.backends.cudnn.allow_tf32 = False  # the f32 heads of both walks in full f32
+    loc_k, cls_k = int8_ops.apply_int8_kernels(qp, feats, torch.float32)
+    loc_p, cls_p = quant.apply_int8(qp, feats, torch.float32, compute="int32")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.synchronize()
+    for name, k, p in (("loc", loc_k, loc_p), ("cls", cls_k, cls_p)):
+        diff = (k - p).abs()
+        frac = (diff > 0.05).float().mean().item()
+        log(f"  apply_int8_kernels vs quant.apply_int8, {name} {tuple(k.shape)}: max |diff| "
+            f"{diff.max().item():.4f} (limit {HEAD_ATOL}), {frac:.5f} of elements past 0.05 "
+            f"(limit {HEAD_FRAC})")
+        assert torch.isfinite(k).all() and diff.max().item() <= HEAD_ATOL and frac < HEAD_FRAC
+
+
+# --------------------------------------------------------------- phase 12
+
+INT8_CONV3_PER_FWD = sum(1 for s in quant._TOPOLOGY if s.kernel == 3)
+INT8_MM_PER_FWD = sum(1 for s in quant._TOPOLOGY if s.kernel == 1)
+
+
+def int8_detector():
+    os.environ["SSDX_INT8"] = "1"
+    try:
+        det8 = create_detector()
+    finally:
+        del os.environ["SSDX_INT8"]
+    assert getattr(det8, "int8", False) and det8.quant_params is not None
+    assert det8.device.type == "cuda" and det8.stem_kernel and det8.dtype == torch.bfloat16
+    return det8
+
+
+def int8_path(det, det8) -> dict:
+    from PIL import Image
+
+    scenes = sorted(STATIC_DIR.glob("example_*.jpg"))
+    stem_ops.launches = nms_ops.launches = 0
+    int8_ops.launches = int8_ops.launches_conv3 = int8_ops.launches_mm = 0
+    preds = [det8.predict_pil(Image.open(p), **SERVE_KW) for p in scenes]
+    torch.cuda.synchronize()
+    launches = {"stem": stem_ops.launches, "nms": nms_ops.launches,
+                "int8_conv3": int8_ops.launches_conv3, "int8_mm": int8_ops.launches_mm}
+    log(f"int8 path: detections per scene {[len(p['labels']) for p in preds]}, kernel "
+        f"launches {launches} ({int8_ops.launches} int8 conv launches in {len(scenes)} "
+        f"forwards)")
+    assert launches["int8_conv3"] == INT8_CONV3_PER_FWD * len(scenes), launches
+    assert launches["int8_mm"] == INT8_MM_PER_FWD * len(scenes), launches
+    assert launches["stem"] == len(scenes) and launches["nms"] > 0, launches
+    for p in preds:
+        assert np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all()
+
+    images = scene_images(det)
+    agree = quant.detection_agreement(det.predict_batched(images, **SERVE_KW),
+                                      det8.predict_batched(images, **SERVE_KW))
+    n8 = sum(len(p["labels"]) for p in preds)
+    log(f"int8 vs bf16 detector on the 3 scenes: match rate {agree['match_rate']:.4f} "
+        f"(limit 0.8; {n8} int8 detections), mean matched IoU "
+        f"{agree['mean_matched_iou']:.4f}, max score delta {agree['max_score_delta']:.4f}")
+    assert n8 > 0 and agree["match_rate"] >= 0.8, agree
+    return launches
+
+
+# --------------------------------------------------------------- phase 13
+
+
+def int8_bound(layer):
+    """Least time for one layer at bs=32: its operations at the dense int8
+    peak against input, weights, scales and outputs moved once."""
+    name, H, cin, cout, k, stride, dilation, pad, emit = layer
+    Ho = (H + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    M = BS * Ho * Ho
+    ops = 2 * M * cout * k * k * cin
+    out_bytes = {"int8": 1, "f32": 2, "both": 3}[emit]  # int8 + bf16 tap
+    nbytes = BS * H * H * cin + k * k * cin * cout + 12 * cout + M * cout * out_bytes
+    t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", ops
+
+
+def int8_timing(dev, det, det8, launches, errs) -> list:
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [torch.randn(BS, 300, 300, 3, generator=g, device=dev) for _ in range(4)]
+    e2e = {"int8": [], "bf16": []}
+    for label, d in (("int8", det8), ("bf16", det), ("bf16", det), ("int8", det8)):  # in turns
+        e2e[label].append(cuda_ms(lambda x: d.predict_batched(x, **SERVE_KW), batches))
+    for label, ms in e2e.items():
+        log(f"predict_batched bs={BS} ({label}): "
+            + ", ".join(f"{t:.3f} ms/batch ({BS * 1e3 / t:.1f} images/s)" for t in ms))
+
+    feats = [det8._stem(x) for x in batches]
+    qp = det8.quant_params
+    walk = {"int8": [], "bf16": []}
+    fns = {"int8": lambda f: int8_ops.apply_int8_kernels(qp, f, torch.bfloat16),
+           "bf16": lambda f: det.model(f, stem_input=True)}
+    with torch.inference_mode():
+        for label in ("int8", "bf16", "bf16", "int8"):
+            walk[label].append(cuda_ms(fns[label], feats))
+    log(f"post-stem walk bs={BS}: int8 kernels + int8 pools + bf16 heads "
+        + ", ".join(f"{t:.3f}" for t in walk["int8"]) + " ms; bf16 SSD300(stem_input=True) "
+        + ", ".join(f"{t:.3f}" for t in walk["bf16"]) + " ms")
+    del feats, batches
+
+    rows = {}
+    for layer in INT8_LAYERS:
+        name, H, cin, cout, k, stride, dilation, pad, emit = layer
+        xs, w = int8_layer_inputs(dev, layer, n_batches=4, seed=7)
+        k_ms = cuda_ms(lambda x: int8_layer_call(int8_ops.int8_conv, x, w, layer), xs)
+        p_ms = cuda_ms(lambda x: int8_layer_call(int8_ops.int8_conv_ref, x, w, layer), xs,
+                       iters=2, warmup=1)
+        bound, bound_by, ops = int8_bound(layer)
+        kq, ws, bias, ns = w
+        if k == 1:
+            wt = kq.reshape(cout, cin).t().contiguous()  # [K,N] for torch._int_mm
+            inv = torch.reciprocal(ns)
+
+            def library(x):
+                y = torch.relu(torch._int_mm(x.reshape(-1, cin), wt).float() * ws + bias)
+                return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8), \
+                    y.to(torch.bfloat16)
+
+            lib_name = "torch._int_mm + elementwise epilogue"
+            lib_ms = cuda_ms(library, xs)
+        else:
+            wb = kq.to(torch.bfloat16)
+            bb = bias.to(torch.bfloat16)
+            xb = [x.to(torch.bfloat16).permute(0, 3, 1, 2) for x in xs]  # channels-last
+            lib_name = "cuDNN bf16 conv + bias of the same layer (no int8 conv call in PyTorch)"
+            lib_ms = cuda_ms(lambda x: F.conv2d(x, wb, bb, stride, pad, dilation), xb)
+            del xb
+        log(f"int8 kernel {name} bs={BS} ({H}x{H}, {cin}->{cout}, k={k} s={stride} "
+            f"d={dilation}, emit={emit}): {k_ms:.4f} ms = {ops / k_ms / 1e9:.1f} TOP/s, "
+            f"bound {bound:.4f} ms by {bound_by}, plain {p_ms:.3f} ms, library {lib_ms:.4f} ms "
+            f"({lib_name})")
+        rows[name] = {"layer": name, "k": k, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "library_ms": lib_ms, "tops": ops / k_ms / 1e9}
+        del xs, w
+        torch.cuda.empty_cache()
+
+    def row(name, kernel, replaces, layer, key, count):
+        r = rows[layer]
+        return {"name": name, "route": "cuda", "source": "ssdx_torch/csrc/int8_conv.cu",
+                "replaces": replaces, "launches": count,
+                "max_abs_err": errs[key]["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": f"{layer} at bs={BS}", "kernel": kernel,
+                "layers": [v for v in rows.values() if (v["k"] == 1) == (key == "mm")]}
+
+    return [
+        row("int8_conv (3x3)", "igemm_kernel<3, kConv>",
+            "ssdx/ops/pallas_int8_conv.py:104", "ConvBNRelu_9", "conv3", launches["int8_conv3"]),
+        row("int8_conv (1x1)", "igemm_kernel<1, kConv>",
+            "ssdx/ops/pallas_int8_conv.py:135", "ConvBNRelu_14", "mm", launches["int8_mm"]),
+    ]
+
+
+def int8_probe() -> dict:
+    """The int8 matmul probe through its own entry point (phase 11's last
+    part): checks both bare matmuls and times them."""
+    int8_ops.launches_raw = 0
+    res = bench_int8_mm.run(size=2048, iters=30, log=lambda *a: log(" ", *a))
+    count = int8_ops.launches_raw
+    assert count > 0, count
+    log(f"int8 probe: {count} launches of the bare matmul kernels")
+    return {"name": "int8_mm_raw", "route": "cuda", "source": "ssdx_torch/csrc/int8_conv.cu",
+            "replaces": "scripts/bench_int8_mxu.py:55", "launches": count,
+            "max_abs_err": res["max_abs_err"], "ms": res["kernel_int8_ms"],
+            "plain_ms": res["plain_int8_ms"], "bound_ms": res["bound_int8_ms"],
+            "bound_by": "operations", "library_ms": res["torch_int8_ms"],
+            "bf16_control": {"ms": res["kernel_bf16_ms"], "library_ms": res["torch_bf16_ms"],
+                             "bound_ms": res["bound_bf16_ms"], "rel_err": res["bf16_rel_err"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
@@ -566,19 +873,27 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    _build.build("stem", "nms", "stem_train")
+    _build.build("stem", "nms", "stem_train", "int8_conv")
     for name, out in sorted(_build.build_logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log(f"built csrc/stem.cu, csrc/nms.cu and csrc/stem_train.cu for sm_90a in "
+    log(f"built csrc/stem.cu, csrc/nms.cu, csrc/stem_train.cu and csrc/int8_conv.cu for sm_90a in "
         f"{time.perf_counter() - t:.1f} s")
 
     errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
     det, launches = main_path(dev)
     serve(det)
     kernels = timing(dev, det, launches, errs)
-    del det
+    errs.update(check_int8_layers(dev))
+    det8 = int8_detector()
+    check_int8_walk(det8)
+    probe_row = int8_probe()
+    launches8 = int8_path(det, det8)
+    serve(det8)
+    kernels += int8_timing(dev, det, det8, launches8, errs)
+    kernels.append(probe_row)
+    del det, det8
     torch.cuda.empty_cache()
     errs["stem_train"] = check_stem_train(dev)
     train = train_path(dev)

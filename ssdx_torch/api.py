@@ -5,7 +5,9 @@ prior constants; ``predict`` returns the ragged per-image contract (labels
 0-based foreground ids, scores, boxes xyxy in 300x300 coordinates).  On the
 GPU the serving configuration is ``fold_bn=True, stem_kernel=True,
 dtype=torch.bfloat16``: the forward starts with the fused stem kernel and
-post-processing runs the NMS kernel.
+post-processing runs the NMS kernel.  ``Detector.quantize_int8`` switches
+the post-stem backbone to int8 (``ssdx_torch/quant.py``), which on the GPU
+runs through the int8 conv kernels (``ssdx_torch/ops/int8_conv.py``).
 """
 from __future__ import annotations
 
@@ -13,12 +15,13 @@ import numpy as np
 import torch
 
 from . import priors as P
-from . import resolve_device
+from . import quant, resolve_device
 from .export import fold_batchnorm
 from .model import IMAGE_SIZE, SSD300, init_variables
+from .ops.int8_conv import apply_int8_kernels
 from .ops.stem import stem_conv_pool
 from .predict import Detections, postprocess, to_pylist
-from .weights import load_params, state_dict_from_jax
+from .weights import load_params, state_dict_from_jax, variables_from_torch
 
 __all__ = ["Detector"]
 
@@ -74,6 +77,8 @@ class Detector:
         self.model.to(self.device, memory_format=torch.channels_last)
 
         self.priors = torch.as_tensor(P.create_priors(), device=self.device)
+        self.quant_params: quant.QuantizedSSD | None = None
+        self._int8_forward = None
 
     @classmethod
     def from_weights(cls, path, class_to_idx, fold_bn: bool = True, **kwargs) -> "Detector":
@@ -83,16 +88,77 @@ class Detector:
         variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
         return cls(class_to_idx, variables=variables, fold_bn=fold_bn, **kwargs)
 
+    def load_train_state(self, state) -> None:
+        """Adopt the weights and running statistics of a
+        :class:`ssdx_torch.train.step.TrainState` (BN folded when this
+        detector serves folded weights).  A quantized detector goes back to
+        its float forward: quantize again on the new weights."""
+        variables = variables_from_torch(state.model)
+        if self.fold_bn:
+            variables = fold_batchnorm(variables)
+        self.variables = variables
+        sd = state_dict_from_jax(variables, self.fold_bn)
+        self.model.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        self.quant_params = self._int8_forward = None
+
+    # ---- int8 quantized serving (ssdx_torch/quant.py) ----
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """images [B,300,300,3] -> the post-stem map [B,150,150,64]."""
+        if self.stem_kernel:
+            c0, c1 = self.model.layers[0].conv, self.model.layers[1].conv
+            return stem_conv_pool(x, c0.weight, c0.bias, c1.weight, c1.bias, self.dtype)
+        return quant.stem_bf16(self.variables["params"], x, self.dtype)
+
+    @torch.inference_mode()
+    def quantize_int8(self, calib_images, calib_batch: int = 16, backend: str = "auto") -> dict:
+        """Switch this detector's forward to the int8-quantized backbone
+        (symmetric int8, per-output-channel weight scales, per-input-channel
+        activation scales folded into the weights; ``ssdx_torch/quant.py``).
+        The stem and the multibox heads stay in the detector's dtype.
+
+        ``calib_images``: representative normalized images [N,300,300,3]
+        (N >= 1) that calibrate the activation scales, taken in chunks of
+        ``calib_batch``.  Returns the calibrated per-layer amax[cin] dict.
+
+        ``backend``: "kernel" runs the int8 convs through the hand-written
+        GPU kernels (``ops.int8_conv.apply_int8_kernels``), "plain" through
+        the PyTorch walk ``quant.apply_int8``; "auto" goes by the detector's
+        device: "kernel" on ``cuda``, "plain" on ``cpu``.
+        """
+        if not self.fold_bn:
+            raise ValueError("int8 quantization requires fold_bn=True")
+        if backend == "auto":
+            backend = "kernel" if self.device.type == "cuda" else "plain"
+        if backend not in ("kernel", "plain"):
+            raise ValueError(f"backend must be auto, kernel or plain, got {backend!r}")
+        if backend == "kernel" and self.device.type != "cuda":
+            raise ValueError("backend='kernel' needs a detector on a CUDA device; "
+                             f"this one is on {self.device}")
+        params = self.variables["params"]
+        calib_images = np.asarray(calib_images)
+        scales: dict[str, np.ndarray] = {}
+        for i in range(0, calib_images.shape[0], calib_batch):
+            chunk = torch.as_tensor(calib_images[i : i + calib_batch], device=self.device)
+            feats = self._stem(chunk)
+            for k, v in quant.calibrate_act_scales(params, feats, self.dtype).items():
+                scales[k] = np.maximum(scales[k], v) if k in scales else v
+        self.quant_params = quant.quantize_ssd(params, scales, self.num_classes, self.device)
+        self._int8_forward = apply_int8_kernels if backend == "kernel" else quant.apply_int8
+        return scales
+
     # ---- inference ----
 
     @torch.inference_mode()
     def forward(self, images) -> tuple[torch.Tensor, torch.Tensor]:
         """Raw heads: images [B,300,300,3] (normalized, NHWC) ->
-        (loc [B,P,4], cls [B,P,C]) float32 on the detector's device."""
+        (loc [B,P,4], cls [B,P,C]) float32 on the detector's device.  Once
+        :meth:`quantize_int8` has run, the post-stem backbone is int8."""
         x = torch.as_tensor(images, device=self.device)
+        if self._int8_forward is not None:
+            return self._int8_forward(self.quant_params, self._stem(x), self.dtype)
         if self.stem_kernel:
-            c0, c1 = self.model.layers[0].conv, self.model.layers[1].conv
-            x = stem_conv_pool(x, c0.weight, c0.bias, c1.weight, c1.bias, self.dtype)
+            x = self._stem(x)
         return self.model(x)
 
     @torch.inference_mode()

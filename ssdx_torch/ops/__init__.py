@@ -3,7 +3,10 @@
 * :mod:`ssdx_torch.ops.stem` — the fused conv1 stem (``csrc/stem.cu``);
 * :mod:`ssdx_torch.ops.nms` — the greedy DIoU-NMS keep mask (``csrc/nms.cu``);
 * :mod:`ssdx_torch.ops.stem_train` — the train-mode stem, forward and
-  backward (``csrc/stem_train.cu``).
+  backward (``csrc/stem_train.cu``);
+* :mod:`ssdx_torch.ops.int8_conv` — the int8 3x3 and 1x1 convs of the
+  quantized serving path with their fused epilogue, and the bare int8 and
+  bf16 matmuls of the tensor-core probe (``csrc/int8_conv.cu``).
 
 A wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor (or raises); it never falls back.

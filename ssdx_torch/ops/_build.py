@@ -24,9 +24,10 @@ BUILD_DIR = _PKG / "_build"
 
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# nms.cu must not contract multiply-adds: its DIoU has to round like the
-# plain PyTorch version, operation by operation.
-_EXTRA = {"nms": ["-fmad=false"]}
+# nms.cu and int8_conv.cu must not contract multiply-adds: the DIoU and the
+# int8 epilogue have to round like their plain PyTorch versions, operation
+# by operation.
+_EXTRA = {"nms": ["-fmad=false"], "int8_conv": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()  # one build at a time within the process

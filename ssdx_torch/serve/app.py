@@ -6,7 +6,9 @@ and ``POST /predict`` (multipart or raw image -> PNG), listening on
 ``$PORT`` (default 8080).  Built on the stdlib ``http.server`` (threaded).
 
 Run it with ``python -m ssdx_torch.serve.app``.  On the GPU the detector
-runs the BN-folded bf16 network with the stem and NMS kernels.  Without
+runs the BN-folded bf16 network with the stem and NMS kernels; with
+``SSDX_INT8=1`` in the environment the post-stem backbone is quantized to
+int8 and runs through the int8 conv kernels.  Without
 ``saved_models/best.weights`` it serves the bundled demo weights, read by
 path from ``ssdx/serve/demo_weights.npz``; the example scenes come from
 ``ssdx/serve/static``.
@@ -101,6 +103,13 @@ def create_detector(weights_path: str | os.PathLike | None = None, device=None):
     ``device`` defaults to ``cuda`` (and raises without a GPU).  On the GPU
     the network runs BN-folded in bfloat16 with the fused stem kernel; on
     the CPU it runs the plain float32 path.
+
+    ``SSDX_INT8=1`` also quantizes the post-stem backbone to int8
+    (``ssdx_torch/quant.py``), calibrated on the bundled example scenes;
+    prefer calibrating on production traffic through
+    ``Detector.quantize_int8`` and passing the detector in.  On the GPU the
+    int8 convs run through the kernels of ``ssdx_torch/ops/int8_conv.py``,
+    on the CPU through ``quant.apply_int8``.
     """
     from ..api import Detector
 
@@ -119,6 +128,14 @@ def create_detector(weights_path: str | os.PathLike | None = None, device=None):
         # random-init weights draw noise boxes: the server says so
         det.weights_loaded = False
         det.demo_weights = False
+    if os.environ.get("SSDX_INT8") == "1" and det.fold_bn:
+        import numpy as np
+        from PIL import Image
+
+        calib = np.concatenate([det.preprocess_pil(Image.open(p))
+                                for p in sorted(STATIC_DIR.glob("example_*.jpg"))])
+        det.quantize_int8(calib)
+        det.int8 = True
     return det
 
 

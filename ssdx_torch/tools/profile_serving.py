@@ -1,18 +1,22 @@
 """Where the device time of the port's main path goes, on one GPU.
 
-    python -m ssdx_torch.tools.profile_serving [--batch 32] [--iters 10]
+    python -m ssdx_torch.tools.profile_serving [--batch 32] [--iters 10] [--int8]
 
 Builds the serving detector (``create_detector()``: BN-folded bf16 SSD300,
-stem and NMS kernels, bundled demo weights), warms it up, and traces
+stem and NMS kernels, bundled demo weights; with ``--int8`` the int8
+configuration that ``SSDX_INT8=1`` serves, its post-stem backbone running
+through the int8 conv kernels), warms it up, and traces
 ``predict_batched`` on distinct random batches with ``torch.profiler``.
 It prints the card (nvidia-smi name and power limit), the device time per
-batch by group (stem kernel, NMS kernel, convolutions, everything else),
+batch by group (stem kernel, NMS kernel, int8 conv kernels, convolutions,
+everything else),
 the top kernels, the device's busy and idle share over the traced window,
 and the host's enqueue time per batch.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -31,6 +35,8 @@ def group(name: str) -> str:
         return "stem kernel (csrc/stem.cu)"
     if "nms_" in n:
         return "nms kernel (csrc/nms.cu)"
+    if "igemm_kernel" in n:
+        return "int8 conv kernels (csrc/int8_conv.cu)"
     if any(k in n for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "sm90", "wgrad", "dgrad")):
         return "convolutions (cuDNN)"
     if "sort" in n or "radix" in n:
@@ -42,6 +48,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--int8", action="store_true",
+                    help="profile the int8 configuration (SSDX_INT8=1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
@@ -49,7 +57,12 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
+    if args.int8:
+        os.environ["SSDX_INT8"] = "1"
+    else:
+        os.environ.pop("SSDX_INT8", None)
     det = create_detector()
+    print(f"configuration: {'int8 post-stem backbone' if args.int8 else 'bf16'}")
     g = torch.Generator(device="cuda").manual_seed(0)
     xs = [torch.randn(args.batch, 300, 300, 3, generator=g, device="cuda") for _ in range(4)]
     for x in xs:

@@ -9,6 +9,9 @@ compressed float16 ``.npz`` bundle whose keys are slash-joined tree paths).
 ``cls_head_i`` -> the fused ``heads.i`` conv, box channels first.
 ``variables_from_torch`` is its inverse: a model's weights back to that
 tree, for comparisons with the JAX package and for weights-only exports.
+``quant_from_jax`` carries a quantized network of the JAX package
+(``ssdx.quant.QuantizedSSD`` as numpy arrays) into the port's
+:class:`ssdx_torch.quant.QuantizedSSD`, and ``quant_to_jax`` carries one back.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 from .model import BACKBONE
 from .priors import BOXES_PER_LOCATION
 
-__all__ = ["load_params", "state_dict_from_jax", "variables_from_torch"]
+__all__ = ["load_params", "state_dict_from_jax", "variables_from_torch",
+           "quant_from_jax", "quant_to_jax"]
 
 _NUM_HEADS = 6
 
@@ -116,3 +120,54 @@ def variables_from_torch(model) -> dict:
         params[f"cls_head_{i}"] = {"kernel": np.ascontiguousarray(kernel[..., 4 * k:]),
                                    "bias": bias[4 * k:]}
     return {"params": params, "batch_stats": stats}
+
+
+def quant_from_jax(qp, device="cpu"):
+    """The port's ``QuantizedSSD`` from the JAX package's.
+
+    ``qp`` has ``layers`` (name -> ``kernel_q`` HWIO int8, ``bias``,
+    ``in_scale``, ``w_scale``), ``heads`` (``box_head_i`` / ``cls_head_i``
+    -> ``kernel`` HWIO, ``bias``) and ``num_classes``; anything
+    ``np.asarray`` reads will do.  The port keeps ``kernel_q`` as int8 of
+    logical shape OIHW in channels-last memory (``[cout][kh][kw][cin]``,
+    what both ``F.conv2d`` and the int8 kernels take) and the heads fused,
+    one float32 OIHW conv per tap with the box channels first.
+    """
+    from .quant import QuantizedSSD, QuantLayer
+
+    dev = torch.device(device)
+    layers = {}
+    for name, ql in qp.layers.items():
+        kq = torch.as_tensor(np.array(ql.kernel_q), dtype=torch.int8).permute(3, 2, 0, 1)
+        layers[name] = QuantLayer(
+            kernel_q=kq.to(dev).contiguous(memory_format=torch.channels_last),
+            bias=_t(ql.bias).to(dev), in_scale=_t(ql.in_scale).to(dev),
+            w_scale=_t(ql.w_scale).to(dev))
+    heads = []
+    for i in range(_NUM_HEADS):
+        box, cls = qp.heads[f"box_head_{i}"], qp.heads[f"cls_head_{i}"]
+        weight = _oihw(np.concatenate([np.asarray(box["kernel"]), np.asarray(cls["kernel"])], -1))
+        bias = _t(np.concatenate([np.asarray(box["bias"]), np.asarray(cls["bias"])]))
+        heads.append({"weight": weight.to(dev).contiguous(memory_format=torch.channels_last),
+                      "bias": bias.to(dev)})
+    return QuantizedSSD(layers=layers, heads=heads, num_classes=int(qp.num_classes))
+
+
+def quant_to_jax(qp) -> dict:
+    """The inverse of :func:`quant_from_jax` as plain numpy:
+    ``{"layers": {name: {"kernel_q" HWIO int8, "bias", "in_scale",
+    "w_scale"}}, "heads": {"box_head_i" / "cls_head_i": {"kernel" HWIO,
+    "bias"}}, "num_classes"}``, the fields of ``ssdx.quant.QuantizedSSD``."""
+    layers = {
+        name: {"kernel_q": np.ascontiguousarray(
+                   ql.kernel_q.detach().cpu().numpy().transpose(2, 3, 1, 0)),
+               "bias": _np(ql.bias), "in_scale": _np(ql.in_scale), "w_scale": _np(ql.w_scale)}
+        for name, ql in qp.layers.items()}
+    heads = {}
+    for i, (head, k) in enumerate(zip(qp.heads, BOXES_PER_LOCATION)):
+        kernel, bias = _hwio(head["weight"]), _np(head["bias"])
+        heads[f"box_head_{i}"] = {"kernel": np.ascontiguousarray(kernel[..., : 4 * k]),
+                                  "bias": bias[: 4 * k]}
+        heads[f"cls_head_{i}"] = {"kernel": np.ascontiguousarray(kernel[..., 4 * k:]),
+                                  "bias": bias[4 * k:]}
+    return {"layers": layers, "heads": heads, "num_classes": qp.num_classes}
