@@ -59,7 +59,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each checked layer's kernel beside its plain version, its bound and its
      library yardstick (torch._int_mm plus the elementwise epilogue for the
      1x1 layer; for the 3x3 layers cuDNN's bf16 conv of the same layer,
-     since no single PyTorch call computes an int8 conv).
+     since no single PyTorch call computes an int8 conv);
+ 14. the 2x2 max pool kernels (csrc/pool.cu) against their plain version in
+     bf16 at [16,300,300,64], at an odd shape and on an input with forced
+     ties: forward and dy equal bit for bit;
+ 15. the fused BN + ReLU + pool kernels (csrc/bn_relu_pool.cu) against their
+     plain version, forward and backward with non-zero cotangents for mean
+     and var, in bf16 at [16,300,300,64], [16,150,150,128], [16,75,75,256]
+     with ceil=True and on a tie / ReLU-boundary input with tie_split on and
+     off: p within one bf16 step, mean and var within 1e-5 of their largest
+     magnitude, dx within 0.02 L2-relative, dgamma and dbeta within 1e-3,
+     and two runs of the kernels identical bit for bit;
+ 16. the kernels' path: the experiment tool (tools/stem_train_experiments.py)
+     runs pool, brp, brp_nosplit and stem_fused beside the unfused bn, bnpool
+     and stem at bs=16, the launch counters set to 0 just before and read
+     just after; then each kernel beside its plain version, its library
+     yardstick (F.max_pool2d; F.batch_norm + relu + max_pool2d) and its
+     bound;
+ 17. the data path: augment_batch and preprocess_batch on the card at bs=16
+     from 512x512 uint8 scenes (finite, boxes in [0,1], valid boxes keep
+     their labels, ms per batch), then train.run.train_on over a SynthDrive
+     directory that data/synth.py writes (JPEG decode, bootstrap loader,
+     augmentation on the card, bf16 with the stem kernel) for 2 epochs of
+     bs=16 batches, and a second call that resumes from last.ckpt.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -83,13 +105,16 @@ from ssdx_torch.api import Detector
 from ssdx_torch.config import EvalConfig, TrainConfig
 from ssdx_torch.model import SSD300, init_variables
 from ssdx_torch.ops import _build
+from ssdx_torch.ops import bn_relu_pool as brp_ops
 from ssdx_torch.ops import int8_conv as int8_ops
 from ssdx_torch.ops import nms as nms_ops
+from ssdx_torch.ops import pool as pool_ops
 from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
 from ssdx_torch.tools import bench_int8_mm
+from ssdx_torch.tools import stem_train_experiments as stem_tool
 from ssdx_torch.train.checkpoint import load_checkpoint
 from ssdx_torch.train.loop import fit
 from ssdx_torch.train.schedule import build_optimizer
@@ -859,6 +884,339 @@ def int8_probe() -> dict:
                              "bound_ms": res["bound_bf16_ms"], "rel_err": res["bf16_rel_err"]}}
 
 
+# --------------------------------------------------------------- phase 14
+
+POOL_SHAPE = (TRAIN_BS, 300, 300, 64)
+
+
+def grads_of(fn, inputs, outs_cot):
+    """One forward and backward of fn(*inputs) with the cotangents
+    ``outs_cot``; returns (outputs, gradients of the inputs)."""
+    xs = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(out, outs_cot)
+    return [o.detach() for o in out], [x.grad for x in xs]
+
+
+def pool_cases(dev):
+    """(name, y, g): the tool's shape, an odd shape (the last row and column
+    belong to no window), and forced ties: half-step values, with every
+    window of the first image equal in all four positions."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf = torch.bfloat16
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    y = r(*POOL_SHAPE).to(bf)
+    odd = r(3, 75, 37, 24).to(bf)
+    ties = (r(4, 60, 60, 64) * 2).round().div(2).to(bf)
+    ties[0] = ties[0, ::2, ::2].repeat_interleave(2, 0).repeat_interleave(2, 1)
+    cot = lambda t: r(t.shape[0], t.shape[1] // 2, t.shape[2] // 2, t.shape[3]).to(bf)
+    return [(f"{tuple(POOL_SHAPE)}", y, cot(y)), ("odd (3, 75, 37, 24)", odd, cot(odd)),
+            ("ties (4, 60, 60, 64)", ties, cot(ties))]
+
+
+def check_pool(dev) -> dict:
+    worst = 0.0
+    for name, y, g in pool_cases(dev):
+        (kp,), (kdy,) = grads_of(pool_ops.max_pool_2x2, [y], [g])
+        (rp,), (rdy,) = grads_of(pool_ops.max_pool_2x2_ref, [y], [g])
+        torch.cuda.synchronize()
+        assert kp.shape == rp.shape and kdy.shape == y.shape and kp.dtype == torch.bfloat16
+        bad_p, bad_dy = int((kp != rp).sum()), int((kdy != rdy).sum())
+        worst = max(worst, (kp.float() - rp.float()).abs().max().item(),
+                    (kdy.float() - rdy.float()).abs().max().item())
+        up = g.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        up = F.pad(up, (0, 0, 0, y.shape[2] - up.shape[2], 0, y.shape[1] - up.shape[1]))
+        shared = int(((kdy != 0) & (kdy != up)).sum())
+        log(f"pool kernels vs plain, {name} bf16: forward {bad_p} mismatches, dy {bad_dy} "
+            f"mismatches of {kdy.numel()} ({shared} positions hold a split share)")
+        assert bad_p == 0 and bad_dy == 0 and torch.isfinite(kdy.float()).all(), name
+    return {"max_abs_err": worst}
+
+
+# --------------------------------------------------------------- phase 15
+
+# (shape, ceil): the tool's shape, the next two pooled stages of the network
+# (the third with the odd 75 -> 38 ceil pool), and a tie / ReLU-boundary input
+BRP_CASES = ((POOL_SHAPE, False), ((TRAIN_BS, 150, 150, 128), False),
+             ((TRAIN_BS, 75, 75, 256), True), ((4, 61, 59, 64), False))
+BF16_STEP = 2.0 ** -7  # largest relative gap between neighbouring bfloat16 values
+
+
+def brp_inputs(dev, shape, ceil, seed, ties=False):
+    """x, gamma, beta and the three cotangents (mean's and var's non-zero)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=dev) * std + mean
+    B, H, W, C = shape
+    x = r(*shape)
+    if ties:  # half-step values: tied maxima, and windows that the ReLU zeroes whole
+        x = (x * 2).round() / 2
+    Hp, Wp = ((H + 1) // 2, (W + 1) // 2) if ceil else (H // 2, W // 2)
+    return ([x.to(torch.bfloat16), r(C, std=0.2, mean=1.0), r(C, std=0.2)],
+            [r(B, Hp, Wp, C).to(torch.bfloat16), r(C), r(C)])
+
+
+def check_brp(dev) -> dict:
+    worst = 0.0
+    for i, (shape, ceil) in enumerate(BRP_CASES):
+        ties = i == len(BRP_CASES) - 1
+        for tie_split in ((True, False) if ties else (True,)):
+            ins, cots = brp_inputs(dev, shape, ceil, seed=15 + i, ties=ties)
+            fn = lambda x, g, b: brp_ops.bn_relu_pool(x, g, b, 1e-5, ceil, tie_split)
+            ref = lambda x, g, b: brp_ops.bn_relu_pool_ref(x, g, b, 1e-5, ceil, tie_split)
+            kout, kgrad = grads_of(fn, ins, cots)
+            kout2, kgrad2 = grads_of(fn, ins, cots)
+            rout, rgrad = grads_of(ref, ins, cots)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(kout + kgrad, kout2 + kgrad2))
+            kp, rp = kout[0].float(), rout[0].float()
+            assert kout[0].shape == rout[0].shape and kout[0].dtype == torch.bfloat16
+            gap = (kp - rp).abs()
+            p_ok = bool((gap <= BF16_STEP * torch.maximum(kp.abs(), rp.abs()) + 1e-6).all())
+            worst = max(worst, gap.max().item())
+            stat = [((k - r).abs().max() / r.abs().max()).item()
+                    for k, r in zip(kout[1:], rout[1:])]
+            dx = ((kgrad[0].float() - rgrad[0].float()).norm() / rgrad[0].float().norm()).item()
+            dgb = [((k - r).abs().max() / r.abs().max()).item()
+                   for k, r in zip(kgrad[1:], rgrad[1:])]
+            log(f"bn_relu_pool kernels vs plain, {tuple(shape)} bf16 ceil={ceil} "
+                f"tie_split={tie_split}{' (ties, ReLU boundary)' if ties else ''}: p "
+                f"{int((gap > 0).sum())} of {gap.numel()} differ, max |k-r| {gap.max().item():.3e} "
+                f"(limit one bf16 step); mean {stat[0]:.2e}, var {stat[1]:.2e} (limit 1e-5 of "
+                f"max); dx |k-r|/|r| {dx:.3e} (limit 0.02); dgamma {dgb[0]:.2e}, dbeta "
+                f"{dgb[1]:.2e} (limit 1e-3 of max); two runs identical: {same}")
+            assert p_ok and torch.isfinite(kp).all(), "p"
+            assert max(stat) < 1e-5 and dx < 0.02 and max(dgb) < 1e-3 and same
+            assert all(torch.isfinite(g.float()).all() for g in kgrad)
+    return {"max_abs_err": worst}
+
+# --------------------------------------------------------------- phase 16
+
+TOOL_VARIANTS = ("pool", "brp", "brp_nosplit", "stem_fused", "bn", "bnpool", "stem")
+TOOL_ITERS = 10
+
+
+def pool_brp_counts() -> dict:
+    return {"pool_fwd": pool_ops.launches_fwd, "pool_bwd": pool_ops.launches,
+            "brp_fwd": brp_ops.launches, "brp_bwd": brp_ops.launches_bwd}
+
+
+def tool_path() -> dict:
+    """The experiment tool's variants that run B5 and B6, and their unfused
+    counterparts, through its own entry point."""
+    pool_ops.launches = pool_ops.launches_fwd = brp_ops.launches = brp_ops.launches_bwd = 0
+    ms = {v: stem_tool.run(v, bs=TRAIN_BS, iters=TOOL_ITERS, log=lambda *a: log(" ", *a))["ms"]
+          for v in TOOL_VARIANTS}
+    torch.cuda.synchronize()
+    launches = pool_brp_counts()
+    per = TOOL_ITERS + 3  # the tool warms up with 3 iterations
+    log(f"tool path: kernel launches {launches} ({per} iterations per variant: pool and stem "
+        f"run B5, brp, brp_nosplit and stem_fused run B6)")
+    assert launches["pool_fwd"] == launches["pool_bwd"] == 2 * per, launches
+    assert launches["brp_fwd"] == launches["brp_bwd"] == 3 * per, launches
+    return {"launches": launches, "ms": ms}
+
+
+def backward_only(fn, inputs, cots, needs_grad=(0,)):
+    """Graphs of fn built once per input outside the timed region; the
+    returned callable runs one backward."""
+    graphs = []
+    for args, cot in zip(inputs, cots):
+        leaves = [a.detach().requires_grad_() if i in needs_grad else a
+                  for i, a in enumerate(args)]
+        out = fn(*leaves)
+        graphs.append((out if isinstance(out, tuple) else (out,), cot,
+                       [leaves[i] for i in needs_grad]))
+    return lambda i: torch.autograd.grad(graphs[i][0], graphs[i][2], graphs[i][1],
+                                         retain_graph=True)
+
+
+def pool_brp_timing(dev, launches, errs) -> list:
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=dev) * std + mean
+    B, H, W, C = POOL_SHAPE
+    idx = list(range(4))
+    xs = [r(B, H, W, C).to(bf) for _ in idx]
+    gs = [r(B, H // 2, W // 2, C).to(bf) for _ in idx]
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # channels-last memory, as the library takes it
+    x_bytes, p_bytes = xs[0].numel() * 2, gs[0].numel() * 2
+    rows = []
+
+    # B5: forward alone, backward alone
+    with torch.no_grad():
+        f_ms = {"kernel": cuda_ms(lambda i: pool_ops.max_pool_2x2(xs[i]), idx),
+                "plain": cuda_ms(lambda i: pool_ops.max_pool_2x2_ref(xs[i]), idx, iters=5),
+                "library": cuda_ms(lambda i: F.max_pool2d(nchw(xs[i]), 2), idx)}
+    one = lambda fn: backward_only(fn, [(x,) for x in xs], [(g,) for g in gs])
+    b_ms = {"kernel": cuda_ms(one(pool_ops.max_pool_2x2), idx),
+            "plain": cuda_ms(one(pool_ops.max_pool_2x2_ref), idx, iters=5),
+            "library": cuda_ms(backward_only(lambda x: F.max_pool2d(nchw(x), 2),
+                                             [(x,) for x in xs], [(nchw(g),) for g in gs]), idx)}
+    f_bound = (x_bytes + p_bytes) / PEAK_BYTES * 1e3
+    b_bound = (2 * x_bytes + 2 * p_bytes) / PEAK_BYTES * 1e3
+    for what, ms, bound, count in (("forward", f_ms, f_bound, launches["pool_fwd"]),
+                                   ("backward", b_ms, b_bound, launches["pool_bwd"])):
+        log(f"max_pool_2x2 {what} kernel {tuple(POOL_SHAPE)} bf16: {ms['kernel']:.4f} ms, library "
+            f"(F.max_pool2d {what}, channels-last) {ms['library']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms, bound {bound:.4f} ms by bytes, 1 launch per {what}")
+        rows.append({
+            "name": f"max_pool_2x2 ({what})", "route": "cuda",
+            "source": "ssdx_torch/csrc/pool.cu",
+            "replaces": "ssdx/ops/pallas_pool.py:" + ("56" if what == "forward" else "124"),
+            "launches": count, "max_abs_err": errs["pool"]["max_abs_err"], "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": ms["library"]})
+
+    # B6: forward + backward, and each alone
+    gamma, beta = r(C, std=0.2, mean=1.0), r(C, std=0.2)
+    gstat = torch.full((C,), 1e-3, device=dev)
+    ins = [(x, gamma, beta) for x in xs]
+    cots = [(g, gstat, gstat) for g in gs]
+
+    def library(x, ga, be):
+        y = F.relu(F.batch_norm(nchw(x), None, None, ga, be, training=True, eps=1e-5))
+        return F.max_pool2d(y, 2)
+
+    fns = {"kernel": brp_ops.bn_relu_pool, "plain": brp_ops.bn_relu_pool_ref, "library": library}
+    t = {}
+    for label, fn in fns.items():
+        it = 5 if label == "plain" else 20
+        lib = label == "library"  # one output, in NCHW
+        c = [(nchw(g),) for g in gs] if lib else cots
+        with torch.no_grad():
+            fwd = cuda_ms(lambda i: fn(*ins[i]), idx, iters=it)
+        bwd = cuda_ms(backward_only(fn, ins, c, needs_grad=(0, 1, 2)), idx, iters=it)
+
+        def both(i):
+            leaves = [a.detach().requires_grad_() for a in ins[i]]
+            out = fn(*leaves)
+            torch.autograd.backward(out if isinstance(out, tuple) else (out,), c[i])
+
+        t[label] = {"fwd": fwd, "bwd": bwd, "both": cuda_ms(both, idx, iters=it)}
+    once = (2 * x_bytes + 2 * p_bytes + x_bytes) / PEAK_BYTES * 1e3   # x, p; x, g, dx
+    passes = (4 * x_bytes + 2 * p_bytes + x_bytes + p_bytes) / PEAK_BYTES * 1e3  # x read 4 times
+    k = t["kernel"]
+    log(f"bn_relu_pool kernels {tuple(POOL_SHAPE)} bf16 fwd+bwd: {k['both']:.4f} ms (forward "
+        f"{k['fwd']:.4f}, backward {k['bwd']:.4f}), library (F.batch_norm + relu + max_pool2d, "
+        f"channels-last) {t['library']['both']:.4f} ms (forward {t['library']['fwd']:.4f}, "
+        f"backward {t['library']['bwd']:.4f}), plain {t['plain']['both']:.4f} ms, bound "
+        f"{once:.4f} ms by bytes with every input and output moved once ({passes:.4f} ms with "
+        f"the second read of x that each BN barrier forces), 1 launch counted per forward "
+        f"and per backward")
+    rows.append({
+        "name": "bn_relu_pool (fwd+bwd)", "route": "cuda",
+        "source": "ssdx_torch/csrc/bn_relu_pool.cu", "replaces": "ssdx/ops/fused_bn_pool.py:518",
+        "launches": launches["brp_fwd"], "launches_bwd": launches["brp_bwd"],
+        "max_abs_err": errs["brp"]["max_abs_err"], "ms": k["both"],
+        "plain_ms": t["plain"]["both"], "bound_ms": once, "bound_by": "bytes",
+        "library_ms": t["library"]["both"], "bound_four_passes_ms": passes,
+        "forward_ms": k["fwd"], "backward_ms": k["bwd"],
+        "library_forward_ms": t["library"]["fwd"], "library_backward_ms": t["library"]["bwd"]})
+    return rows
+
+
+# --------------------------------------------------------------- phase 17
+
+SYNTH_IMAGES, SYNTH_VAL = 44, 12  # a SynthDrive directory: 32 train files, 12 val
+
+
+def check_augment(dev):
+    """augment_batch and preprocess_batch at bs=16 from 512x512 scenes."""
+    from ssdx_torch.data import synth
+    from ssdx_torch.data.augment import AugmentConfig, augment_batch, preprocess_batch
+
+    rng = np.random.default_rng(17)
+    G = 16
+    batches = []
+    for _ in range(4):
+        imgs = np.zeros((TRAIN_BS, 512, 512, 3), np.uint8)
+        boxes = np.zeros((TRAIN_BS, G, 4), np.float32)
+        labels = np.zeros((TRAIN_BS, G), np.int32)
+        valid = np.zeros((TRAIN_BS, G), bool)
+        for b in range(TRAIN_BS):
+            imgs[b], bx, lb = synth.render_scene(rng, 512)
+            n = min(len(lb), G)
+            boxes[b, :n], labels[b, :n], valid[b, :n] = bx[:n], lb[:n], True
+        batches.append(tuple(torch.as_tensor(a, device=dev) for a in (imgs, boxes, labels, valid)))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cfg = AugmentConfig(zoom_out_prob=0.5)  # every branch: zoom-out, crops, flip, photometric
+    kept = total = 0
+    for imgs, boxes, labels, valid in batches:
+        img, b01, lab, val = augment_batch(gen, imgs, boxes, labels, valid, cfg)
+        assert img.shape == (TRAIN_BS, 300, 300, 3) and img.dtype == torch.float32
+        assert torch.isfinite(img).all() and torch.isfinite(b01).all()
+        assert float(b01.min()) >= 0.0 and float(b01.max()) <= 1.0
+        assert torch.equal(lab, labels) and not (val & ~valid).any()  # valid boxes keep labels
+        assert (b01[val][:, 2:] > b01[val][:, :2]).all()
+        kept, total = kept + int(val.sum()), total + int(valid.sum())
+        pimg, pb = preprocess_batch(imgs, boxes)
+        assert pimg.shape == img.shape and torch.isfinite(pimg).all()
+        assert float(pb.min()) >= 0.0 and float(pb.max()) <= 1.0
+    assert 0 < kept <= total
+    a_ms = cuda_ms(lambda b: augment_batch(gen, *b, cfg), batches)
+    p_ms = cuda_ms(lambda b: preprocess_batch(b[0], b[1]), batches)
+    log(f"data path on the card, bs={TRAIN_BS} from 512x512 uint8: augment_batch {a_ms:.3f} "
+        f"ms/batch ({kept} of {total} boxes kept over 4 batches), preprocess_batch "
+        f"{p_ms:.3f} ms/batch")
+
+
+def data_path(dev) -> dict:
+    """SynthDrive on disk -> DetectionDataset -> loaders -> fit, twice (the
+    second call resumes).  The split is by file list: the stratified split of
+    train.run.run needs scikit-learn."""
+    import dataclasses
+    import tempfile
+
+    from ssdx_torch.config import Config
+    from ssdx_torch.data import synth
+    from ssdx_torch.data.dataset import DetectionDataset
+    from ssdx_torch.train.run import train_on
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        synth.generate_dataset(f"{d}/train", SYNTH_IMAGES, seed=17)
+        full = DetectionDataset(f"{d}/train")
+        names = [p.name for p in full.paths]
+        val_ds = DetectionDataset(f"{d}/train", file_list=names[:SYNTH_VAL])
+        train_ds = DetectionDataset(f"{d}/train", file_list=names[SYNTH_VAL:])
+        log(f"SynthDrive: {len(full)} scenes of 512x512 written and scanned in "
+            f"{time.perf_counter() - t0:.1f} s, classes {full.classes}")
+        cfg = Config()
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, batch_size=TRAIN_BS, num_workers=4),
+            train=dataclasses.replace(cfg.train, save_dir=f"{d}/ckpt", warmup_epochs=0,
+                                      epochs=3))
+        assert cfg.train.bfloat16 and cfg.train.fused_stem is None and cfg.train.width_mult == 1.0
+        stem_train_ops.launches = nms_ops.launches = 0
+        logs = []
+        say = lambda m: (logs.append(m), log(" ", m))
+        state, results = train_on(train_ds, val_ds, len(full.classes) + 1, cfg, epochs=2,
+                                  resume=True, log=say, device=dev)
+        torch.cuda.synchronize()
+        steps = state.step
+        launches = {"stem_train": stem_train_ops.launches, "nms": nms_ops.launches}
+        assert steps >= 4 and steps % 2 == 0, steps  # 2 epochs of at least two batches
+        assert launches["stem_train"] == steps and launches["nms"] > 0, launches
+        assert len(results["train_loss"]) == 2 and all(np.isfinite(results["train_loss"]))
+        assert all(np.isfinite(results["test_loss"]))
+        assert os.path.exists(f"{d}/ckpt/last.ckpt") and os.path.exists(f"{d}/ckpt/last.weights")
+        timing = results["training timing"][-1]
+        log(f"train_on: 2 epochs of {steps // 2} bs={TRAIN_BS} batches (bf16, stem kernel), "
+            f"train loss {results['train_loss'][0]:.4f} -> {results['train_loss'][1]:.4f}, "
+            f"data wait {timing['data wait'] * 1e3:.1f} ms and step {timing['step'] * 1e3:.1f} "
+            f"ms per batch in epoch 2; kernel launches {launches}")
+        state2, results2 = train_on(train_ds, val_ds, len(full.classes) + 1, cfg, epochs=3,
+                                    resume=True, log=say, device=dev)
+        assert f"resumed from {d}/ckpt/last.ckpt: 2 epochs done, 1 of 3 remaining" in logs
+        assert state2.step == steps * 3 // 2 and results2["epochs"] == [3]
+        assert len(results2["train_loss"]) == 3 and np.isfinite(results2["train_loss"][-1])
+        from ssdx_torch.weights import load_params
+        weights = load_params(f"{d}/ckpt/last.weights")
+        assert set(weights) >= {"params", "batch_stats"}
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
@@ -873,13 +1231,13 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    _build.build("stem", "nms", "stem_train", "int8_conv")
+    _build.build("stem", "nms", "stem_train", "int8_conv", "pool", "bn_relu_pool")
     for name, out in sorted(_build.build_logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log(f"built csrc/stem.cu, csrc/nms.cu, csrc/stem_train.cu and csrc/int8_conv.cu for sm_90a in "
-        f"{time.perf_counter() - t:.1f} s")
+    log(f"built csrc/stem.cu, nms.cu, stem_train.cu, int8_conv.cu, pool.cu and bn_relu_pool.cu "
+        f"for sm_90a in {time.perf_counter() - t:.1f} s")
 
     errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
     det, launches = main_path(dev)
@@ -898,6 +1256,11 @@ def main() -> int:
     errs["stem_train"] = check_stem_train(dev)
     train = train_path(dev)
     kernels.append(train_timing(dev, train["launches"], errs["stem_train"]))
+    errs["pool"], errs["brp"] = check_pool(dev), check_brp(dev)
+    tool = tool_path()
+    kernels += pool_brp_timing(dev, tool["launches"], errs)
+    check_augment(dev)
+    data_path(dev)
     log(f"chip_smoke phases done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
