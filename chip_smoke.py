@@ -81,14 +81,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
      their labels, ms per batch), then train.run.train_on over a SynthDrive
      directory that data/synth.py writes (JPEG decode, bootstrap loader,
      augmentation on the card, bf16 with the stem kernel) for 2 epochs of
-     bs=16 batches, and a second call that resumes from last.ckpt.
+     bs=16 batches, and a second call that resumes from last.ckpt;
+ 18. the probe kernels of the data-parallel repro tool (csrc/repro.cu)
+     against their plain versions: ew = tanh(x) * 1.5 on [256,256] f32 and
+     on an odd length within 1e-6, mm on 1024^3 bf16 and on a 512-row shard
+     within 1e-3 of the largest magnitude; then the tool
+     (tools/repro_dist_kernels.py) with its three cases in a one-rank NCCL
+     group: six ok lines, inside the mesh equal to outside bit for bit, the
+     launch counters set to 0 just before and read just after; then both
+     kernels beside their plain version, library call and bound;
+ 19. the mesh path at one rank (the same NCCL group), full width:
+     Detector(mesh=) on the three scenes equals phase 5's detections
+     exactly; forward on B=5 equals the meshless forward; 3 bf16 bs=16
+     train steps with the stem kernel equal phase 9's meshless steps loss
+     for loss, exactly; save_checkpoint_sharded writes the directory format
+     and load_checkpoint restores it;
+ 20. two ranks on the one card: two worker processes over gloo, 8 of the 16
+     images each, 3 train steps with the stem kernel's statistics
+     all-reduced, against the one-process bs=16 steps: the stem BNs'
+     running statistics after the first step within 1e-4 of their largest
+     magnitude, losses within 1 %, both ranks' parameters bit-identical; then Detector(mesh=)
+     at two ranks on B=5 (padded to 6) against one process: heads within
+     0.05 of their largest magnitude; a worker that fails or outlives its
+     time limit fails the run;
+ 21. eval: the C++ matcher is available and equals the numpy matcher on
+     seeded boxes; python -m ssdx_torch.eval.run on the demo weights over a
+     SynthDrive test directory prints its mAP line (finite, above 0.5).
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -99,6 +128,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssdx_torch import mesh as mesh_lib
 from ssdx_torch import priors as P
 from ssdx_torch import quant
 from ssdx_torch.api import Detector
@@ -107,15 +137,19 @@ from ssdx_torch.model import SSD300, init_variables
 from ssdx_torch.ops import _build
 from ssdx_torch.ops import bn_relu_pool as brp_ops
 from ssdx_torch.ops import int8_conv as int8_ops
+from ssdx_torch.ops import native as native_ops
 from ssdx_torch.ops import nms as nms_ops
 from ssdx_torch.ops import pool as pool_ops
+from ssdx_torch.ops import repro as repro_ops
 from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
 from ssdx_torch.tools import bench_int8_mm
+from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
 from ssdx_torch.train.checkpoint import load_checkpoint
+from ssdx_torch.train.sharded_checkpoint import save_checkpoint_sharded
 from ssdx_torch.train.loop import fit
 from ssdx_torch.train.schedule import build_optimizer
 from ssdx_torch.train.step import Batch, create_train_state, make_eval_step, make_train_step
@@ -279,7 +313,7 @@ def main_path(dev):
     log(f"main path vs f32 plain: {tot_m}/{n_ref} f32 detections matched, "
         f"label agreement {tot_s}/{tot_m}")
     assert n_ref > 0 and tot_m >= 0.8 * n_ref and tot_s >= 0.9 * tot_m
-    return det, launches
+    return det, launches, preds
 
 
 # ---------------------------------------------------------------- phase 6
@@ -452,21 +486,21 @@ def train_batch(dev, seed, B=TRAIN_BS, G=16) -> Batch:
                    for a in (images, boxes, labels, np.ones((B, G), bool))))
 
 
-def train_setup(dev, fused):
+def train_setup(dev, fused, mesh=None):
     """Full-width bf16 SSD300 from init_variables(6, seed=0), SGD-Nesterov
     with the warmup-cosine schedule (no warmup, base_lr 1e-2)."""
     model = SSD300(6, dtype=torch.bfloat16).to(dev, memory_format=torch.channels_last)
     opt, sched = build_optimizer(model.parameters(), steps_per_epoch=100, warmup_epochs=0,
                                  base_lr=1e-2, momentum=TRAIN_CFG.momentum,
                                  weight_decay=TRAIN_CFG.weight_decay)
-    state = create_train_state(model, opt, sched, init_variables(6, seed=0))
+    state = create_train_state(model, opt, sched, init_variables(6, seed=0), mesh=mesh)
     pri = P.create_priors()
     step = make_train_step(model, pri, P.priors_xyxy(pri), iou_thresh=TRAIN_CFG.iou_thresh,
-                           neg_pos_ratio=TRAIN_CFG.neg_pos_ratio, fused_stem=fused)
+                           neg_pos_ratio=TRAIN_CFG.neg_pos_ratio, fused_stem=fused, mesh=mesh)
     ev = make_eval_step(model, pri, P.priors_xyxy(pri), iou_thresh=TRAIN_CFG.iou_thresh,
                         neg_pos_ratio=TRAIN_CFG.neg_pos_ratio,
                         score_thresh=EVAL_CFG.score_thresh, nms_thresh=EVAL_CFG.nms_thresh,
-                        max_per_img=EVAL_CFG.max_per_img)
+                        max_per_img=EVAL_CFG.max_per_img, mesh=mesh)
     return state, step, ev
 
 
@@ -1217,7 +1251,321 @@ def data_path(dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 18
+
+EW_ATOL = 1e-6   # tanhf against PyTorch's tanh need not agree in the last bit
+MM_RTOL = 1e-3   # of the largest magnitude, as phase 11 holds bf16_mm_raw
+
+
+def repro_inputs(dev, n=4, seed=18):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    xs = [r(256, 256) for _ in range(n)]
+    ms = [(r(1024, 1024).to(torch.bfloat16), r(1024, 1024).to(torch.bfloat16)) for _ in range(n)]
+    return xs, ms, r(1027)
+
+
+def check_repro(dev) -> dict:
+    xs, ms, odd = repro_inputs(dev)
+    errs = {}
+    for name, x in (("[256,256]", xs[0]), ("odd length 1027", odd)):
+        got, ref = repro_ops.ew(x), repro_ops.ew_ref(x)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        log(f"ew kernel vs plain, {name} f32: max |k-r| = {e:.3e} (limit {EW_ATOL})")
+        assert got.shape == ref.shape and torch.isfinite(got).all() and e <= EW_ATOL, e
+        errs["ew"] = max(errs.get("ew", 0.0), e)
+    x, y = ms[0]
+    for name, a in (("1024^3", x), ("512-row shard", x[512:])):
+        got, ref = repro_ops.mm(a, y), repro_ops.mm_ref(a, y)
+        torch.cuda.synchronize()
+        e, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        log(f"mm kernel vs plain, {name} bf16 -> f32: max |k-r| = {e:.3e}, max |r| = {top:.1f} "
+            f"(limit {MM_RTOL} of it)")
+        assert got.dtype == torch.float32 and torch.isfinite(got).all() and e <= MM_RTOL * top
+        errs["mm"] = max(errs.get("mm", 0.0), e)
+    return {k: {"max_abs_err": v} for k, v in errs.items()}
+
+
+def repro_path(mesh) -> dict:
+    """The tool's three cases through its own entry point, in the mesh."""
+    repro_ops.launches_ew = repro_ops.launches_mm = stem_ops.launches = 0
+    lines = repro_tool.run(repro_tool.CASES, mesh, log=lambda m: log(" ", m))
+    torch.cuda.synchronize()
+    launches = {"ew": repro_ops.launches_ew, "mm": repro_ops.launches_mm,
+                "stem": stem_ops.launches}
+    log(f"repro tool in a {mesh.size}-rank {mesh.backend} group: "
+        f"{sum(v['status'] == 'ok' for v in lines.values())} of {len(lines)} lines ok, kernel "
+        f"launches {launches}")
+    assert len(lines) == 6 and all(v["status"] == "ok" for v in lines.values()), lines
+    for name, v in lines.items():
+        if name.endswith("inside mesh"):
+            assert v["max_diff"] == 0.0, (name, v)  # the same kernel on the same data
+    assert launches == {"ew": 2, "mm": 2, "stem": 2}, launches
+    return launches
+
+
+def repro_timing(dev, launches, errs) -> list:
+    xs, ms, _ = repro_inputs(dev, seed=19)
+    n = xs[0].numel()
+    ew_ms = cuda_ms(repro_ops.ew, xs, iters=200, warmup=10)
+    ew_plain = cuda_ms(repro_ops.ew_ref, xs, iters=200, warmup=10)
+    ew_bytes, ew_ops = 2 * n * 4, 2 * n
+    ew_bound = max(ew_bytes / PEAK_BYTES, ew_ops / PEAK_F32) * 1e3
+    log(f"ew kernel [256,256] f32: {ew_ms:.5f} ms, plain and library (torch.tanh(x) * 1.5, two "
+        f"launches) {ew_plain:.5f} ms, bound {ew_bound:.6f} ms by bytes ({ew_bytes / 1e3:.0f} KB): "
+        f"launch-bound")
+    mm_ms = cuda_ms(lambda a: repro_ops.mm(*a), ms, iters=50, warmup=5)
+    mm_plain = cuda_ms(lambda a: repro_ops.mm_ref(*a), ms, iters=50, warmup=5)
+    mm_lib = cuda_ms(lambda a: torch.matmul(*a), ms, iters=50, warmup=5)
+    M = N = K = 1024
+    ops, nbytes = 2 * M * N * K, (M * K + K * N) * 2 + M * N * 4
+    t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    mm_bound = max(t_ops, t_bytes) * 1e3
+    log(f"mm kernel 1024^3 bf16 -> f32: {mm_ms:.5f} ms = {ops / mm_ms / 1e9:.1f} TFLOP/s, plain "
+        f"(x.float() @ y.float()) {mm_plain:.5f} ms, library (torch.matmul in bf16, bf16 out) "
+        f"{mm_lib:.5f} ms, bound {mm_bound:.5f} ms ({t_ops * 1e3:.5f} by operations, "
+        f"{t_bytes * 1e3:.5f} by bytes)")
+    common = {"route": "cuda", "source": "ssdx_torch/csrc/repro.cu"}
+    return [
+        {"name": "ew", **common, "replaces": "scripts/repro_shardmap_pallas.py:68",
+         "launches": launches["ew"], "max_abs_err": errs["ew"]["max_abs_err"], "ms": ew_ms,
+         "plain_ms": ew_plain, "bound_ms": ew_bound, "bound_by": "bytes",
+         "library_ms": ew_plain},
+        {"name": "mm", **common, "replaces": "scripts/repro_shardmap_pallas.py:88",
+         "launches": launches["mm"], "max_abs_err": errs["mm"]["max_abs_err"], "ms": mm_ms,
+         "plain_ms": mm_plain, "bound_ms": mm_bound,
+         "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": mm_lib},
+    ]
+
+
+# --------------------------------------------------------------- phase 19
+
+MESH_STEPS = 3
+MESH_B = 5  # an odd batch: two ranks pad it to 6
+
+
+def mesh_detector(mesh):
+    """create_detector()'s configuration on the bundled weights, in a mesh."""
+    return Detector.from_weights(BUNDLED_WEIGHTS, CLASS_TO_IDX, stem_kernel=True,
+                                 dtype=torch.bfloat16, mesh=mesh)
+
+
+def mesh_images(dev):
+    g = torch.Generator(device=dev).manual_seed(19)
+    return torch.randn(MESH_B, 300, 300, 3, generator=g, device=dev)
+
+
+def stem_bn_stats(model) -> dict:
+    return {f"layers.{i}.bn.{k}": getattr(model.layers[i].bn, k).detach().float().cpu()
+            for i in (0, 1) for k in ("running_mean", "running_var")}
+
+
+def mesh_path(dev, mesh, det, preds5, plain_losses) -> dict:
+    """Phase 19; returns what phase 20's ranks are held against."""
+    import tempfile
+
+    from PIL import Image
+
+    scenes = sorted(STATIC_DIR.glob("example_*.jpg"))
+    dm = mesh_detector(mesh)
+    assert dm.mesh is mesh and dm.device.type == "cuda" and dm.stem_kernel
+    stem_ops.launches = nms_ops.launches = stem_train_ops.launches = 0
+    preds = [dm.predict_pil(Image.open(p), **SERVE_KW) for p in scenes]
+    for i, (a, b) in enumerate(zip(preds, preds5)):
+        for k in ("boxes", "scores", "labels"):
+            assert np.array_equal(a[k], b[k]), (i, k)
+    x = mesh_images(dev)
+    loc_m, cls_m = dm.forward(x)
+    loc_1, cls_1 = det.forward(x)
+    assert torch.equal(loc_m, loc_1) and torch.equal(cls_m, cls_1)
+    log(f"mesh path, {mesh.size} rank ({mesh.backend}): Detector(mesh=) gives phase 5's "
+        f"detections exactly on the 3 scenes ({[len(p['labels']) for p in preds]}); forward on "
+        f"B={MESH_B} equals the meshless forward bit for bit")
+    del dm
+
+    batch = train_batch(dev, 0)
+    state, step, _ = train_setup(dev, fused=True, mesh=mesh)
+    losses, bn = [], None
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        bn = bn or stem_bn_stats(state.model)  # after the first step: the same weights
+    torch.cuda.synchronize()
+    launches = {"stem": stem_ops.launches, "nms": nms_ops.launches,
+                "stem_train": stem_train_ops.launches}
+    log(f"mesh path: {MESH_STEPS} train steps (bs={TRAIN_BS}, bf16, stem kernel) in the mesh, "
+        f"losses {losses}; meshless (phase 9) {plain_losses[:MESH_STEPS]}; kernel launches "
+        f"{launches}")
+    assert losses == plain_losses[:MESH_STEPS], (losses, plain_losses)
+    # the stem kernel: 3 scenes and B=5 in the mesh, and the meshless B=5 beside it
+    assert launches["stem"] == len(scenes) + 2 and launches["nms"] == len(scenes), launches
+    assert launches["stem_train"] == MESH_STEPS, launches
+    ref = {"losses": losses, "bn": bn, "loc": loc_1.cpu(), "cls": cls_1.cpu()}
+
+    holder = {"state": state}
+
+    def one(b):
+        holder["state"], _ = step(holder["state"], b)
+
+    ms = cuda_ms(one, [train_batch(dev, 10 + i) for i in range(4)], iters=10, warmup=3)
+    log(f"train step bs={TRAIN_BS} bf16 (stem kernel) in the {mesh.size}-rank {mesh.backend} mesh: "
+        f"{ms:.3f} ms ({TRAIN_BS * 1e3 / ms:.1f} images/s); meshless: phase 10's stem-kernel line")
+    state = holder["state"]
+    steps_taken = state.step
+
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint_sharded(epoch=0, state=state, loss_dict={"train_loss": losses},
+                                       best_metric=losses[-1], outdir=d, tag="last", mesh=mesh)
+        files = sorted(f.name for f in path.iterdir())
+        fresh, _, _ = train_setup(dev, fused=True, mesh=mesh)
+        fresh, start_epoch, best, loss_dict = load_checkpoint(path, fresh, mesh=mesh)
+        same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                                     state.model.state_dict().values()))
+        log(f"save_checkpoint_sharded -> {path.name}/ {files}; load_checkpoint on the directory: "
+            f"start_epoch {start_epoch}, step {fresh.step}, weights restored bit for bit: {same}")
+        assert path.is_dir() and files == ["arrays.pkl", "host_meta_p0.pkl"], files
+        assert start_epoch == 1 and fresh.step == steps_taken and best == losses[-1] and same
+        assert loss_dict == {"train_loss": losses}
+    return ref
+
+
+# --------------------------------------------------------------- phase 20
+
+WORKER_TIMEOUT_S = 420
+BN_RTOL, TWO_RANK_LOSS_RTOL, HEADS_RTOL = 1e-4, 0.01, 0.05
+
+
+def mesh_worker(rank: int, port: int, outdir: str) -> int:
+    """One of phase 20's two ranks: joins a gloo group on the shared card,
+    takes its 8 of the 16 images, and writes what it computed to
+    ``{outdir}/rank{rank}.pt``."""
+    mesh_lib.initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                                    world_size=2, rank=rank)
+    mesh = mesh_lib.create_mesh()
+    dev = mesh.device
+    assert mesh.size == 2 and mesh.backend == "gloo" and dev.type == "cuda"
+    batch = mesh_lib.shard_batch(train_batch(dev, 0), mesh)
+    assert batch.images.shape[0] == TRAIN_BS // 2
+    state, step, _ = train_setup(dev, fused=True, mesh=mesh)
+    stem_train_ops.launches = stem_ops.launches = 0
+    losses, bn, t0 = [], None, time.perf_counter()
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        bn = bn or stem_bn_stats(state.model)
+    step_s = (time.perf_counter() - t0) / MESH_STEPS
+    digest = hashlib.sha256()
+    for t in state.model.state_dict().values():
+        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    out = {"losses": losses, "bn": bn, "params": digest.hexdigest(),
+           "step_s": step_s, "stem_train_launches": stem_train_ops.launches}
+    del state, step
+    torch.cuda.empty_cache()
+    loc, cls = mesh_detector(mesh).forward(mesh_images(dev))
+    out.update(loc=loc.cpu(), cls=cls.cpu(), stem_launches=stem_ops.launches)
+    torch.save(out, f"{outdir}/rank{rank}.pt")
+    mesh_lib.barrier(mesh)
+    mesh_lib.finalize_distributed()
+    return 0
+
+
+def two_rank_path(ref) -> None:
+    import tempfile
+
+    port = repro_tool.free_port()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                   str(r), str(port), d], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        outs = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out = (p.communicate()[0] or "") + f"\n(killed after {WORKER_TIMEOUT_S} s)"
+            outs.append(out)
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+        got = [torch.load(f"{d}/rank{r}.pt") for r in range(2)]
+    a, b = got
+    assert a["params"] == b["params"], "the two ranks' parameters differ"
+    assert a["losses"] == b["losses"] and a["stem_train_launches"] == MESH_STEPS
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"])]
+    bn = {k: ((a["bn"][k] - v).abs().max() / v.abs().max()).item() for k, v in ref["bn"].items()}
+    log(f"two ranks on one card (gloo, 8 + 8 of the 16 images, stem kernel with all-reduced "
+        f"statistics): losses {a['losses']} against one process {ref['losses']}: relative "
+        f"differences {[f'{x:.2e}' for x in rel]} (limit {TWO_RANK_LOSS_RTOL}); stem BN running "
+        f"statistics after the first step (later the weights have drifted apart in bf16), max "
+        f"|2r - 1p| / max |1p|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in bn.items()) + f" (limit {BN_RTOL}); both ranks' "
+        f"parameters bit-identical (sha256 {a['params'][:12]}); {a['step_s'] * 1e3:.0f} ms per "
+        f"step per rank: the ranks share the card's SMs and gloo stages the gradients through "
+        f"the host, so this is a correctness run, not a scaling result")
+    assert all(np.isfinite(a["losses"])) and max(rel) <= TWO_RANK_LOSS_RTOL, rel
+    assert max(bn.values()) <= BN_RTOL, bn
+    for name in ("loc", "cls"):
+        assert torch.equal(a[name], b[name]) and a[name].shape == ref[name].shape
+        e = ((a[name] - ref[name]).abs().max() / ref[name].abs().max()).item()
+        log(f"  Detector(mesh=) at two ranks, B={MESH_B} padded to {MESH_B + 1}: {name} "
+            f"{tuple(a[name].shape)} max |2r - 1p| / max |1p| = {e:.3e} (limit {HEADS_RTOL}; a "
+            f"rank's 3 images and the whole 5 may take other cuDNN algorithms in bf16)")
+        assert torch.isfinite(a[name]).all() and e <= HEADS_RTOL, (name, e)
+    assert a["stem_launches"] == 1, a["stem_launches"]
+
+
+# --------------------------------------------------------------- phase 21
+
+EVAL_SCENES = 24
+
+
+def eval_path(dev) -> None:
+    import tempfile
+
+    from ssdx_torch.data import synth
+    from ssdx_torch.eval import map as map_lib
+    from ssdx_torch.eval import run as eval_run
+
+    assert native_ops.available(), _build.build_logs.get("ssdx_native")
+    rng = np.random.default_rng(21)
+    flags = total = 0
+    for _ in range(50):
+        nd, ng = int(rng.integers(1, 40)), int(rng.integers(1, 12))
+        lo = rng.uniform(0, 250, (ng, 2))
+        gt = np.concatenate([lo, lo + rng.uniform(5, 120, (ng, 2))], 1)
+        det = gt[rng.integers(0, ng, nd)] + rng.normal(0, 8, (nd, 4))  # near a GT, in score order
+        ig = rng.random(ng) < 0.3
+        for thresh in (0.5, 0.75):
+            tp, mig = native_ops.match_detections_ignore(det, gt, ig, thresh)
+            rtp, rmig = map_lib._match_with_ignore(det, gt, ig, thresh)
+            assert np.array_equal(tp, rtp) and np.array_equal(mig, rmig)
+            flags, total = flags + int(tp.sum() + mig.sum()), total + nd
+    log(f"C++ matcher (csrc/ssdx_native.cpp, g++) equals the numpy matcher on 100 seeded groups "
+        f"({flags} of {total} detections matched)")
+
+    with tempfile.TemporaryDirectory() as d:
+        synth.generate_dataset(f"{d}/test", EVAL_SCENES, seed=21)
+        nms_ops.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_run.main(["--test-dir", f"{d}/test", "--batch-size", "8", str(BUNDLED_WEIGHTS)])
+        torch.cuda.synchronize()
+    line = buf.getvalue().strip()
+    log(f"eval.run on {EVAL_SCENES} SynthDrive scenes, demo weights (bf16, NMS kernel launches "
+        f"{nms_ops.launches}):")
+    log(" ", line.replace(f"{BUNDLED_WEIGHTS}", BUNDLED_WEIGHTS.name))
+    m = re.fullmatch(r".*: mAP@0\.5=([0-9.]+)  \[(.+)\]  test loss=([0-9.]+)", line)
+    assert m, line
+    assert nms_ops.launches == EVAL_SCENES // 8, nms_ops.launches
+    assert np.isfinite(float(m.group(3))) and float(m.group(1)) > 0.5, line
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
@@ -1231,16 +1579,17 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    _build.build("stem", "nms", "stem_train", "int8_conv", "pool", "bn_relu_pool")
+    _build.build("stem", "nms", "stem_train", "int8_conv", "pool", "bn_relu_pool", "repro")
+    assert _build.build_host("ssdx_native") is not None, _build.build_logs.get("ssdx_native")
     for name, out in sorted(_build.build_logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log(f"built csrc/stem.cu, nms.cu, stem_train.cu, int8_conv.cu, pool.cu and bn_relu_pool.cu "
-        f"for sm_90a in {time.perf_counter() - t:.1f} s")
+    log(f"built csrc/stem.cu, nms.cu, stem_train.cu, int8_conv.cu, pool.cu, bn_relu_pool.cu and "
+        f"repro.cu for sm_90a, and ssdx_native.cpp with g++, in {time.perf_counter() - t:.1f} s")
 
     errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
-    det, launches = main_path(dev)
+    det, launches, preds5 = main_path(dev)
     serve(det)
     kernels = timing(dev, det, launches, errs)
     errs.update(check_int8_layers(dev))
@@ -1251,7 +1600,7 @@ def main() -> int:
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs)
     kernels.append(probe_row)
-    del det, det8
+    del det8
     torch.cuda.empty_cache()
     errs["stem_train"] = check_stem_train(dev)
     train = train_path(dev)
@@ -1261,6 +1610,18 @@ def main() -> int:
     kernels += pool_brp_timing(dev, tool["launches"], errs)
     check_augment(dev)
     data_path(dev)
+    errs.update(check_repro(dev))
+    mesh_lib.initialize_distributed(init_method=f"tcp://localhost:{repro_tool.free_port()}",
+                                    world_size=1, rank=0)
+    mesh = mesh_lib.create_mesh()
+    assert mesh.size == 1 and mesh.backend == "nccl", mesh
+    kernels += repro_timing(dev, repro_path(mesh), errs)
+    ref = mesh_path(dev, mesh, det, preds5, train["kern"])
+    mesh_lib.finalize_distributed()
+    del det
+    torch.cuda.empty_cache()
+    two_rank_path(ref)
+    eval_path(dev)
     log(f"chip_smoke phases done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

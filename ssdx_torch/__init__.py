@@ -8,7 +8,8 @@ and the int8 3x3 and 1x1 convs with their fused requantizing epilogue,
 beside the bare int8 and bf16 matmuls of the tensor-core probe) written by
 hand in CUDA C++ for ``sm_90a`` (``ssdx_torch/csrc``).  Public functions
 keep the JAX package's NHWC layout so the two can be compared like with
-like.
+like.  Data parallelism is one process per device under
+``torch.distributed`` (``ssdx_torch/mesh.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no GPU present they raise instead of carrying on

@@ -17,6 +17,7 @@ import torch
 from . import priors as P
 from . import quant, resolve_device
 from .export import fold_batchnorm
+from .mesh import all_gather_batch, shard_batch
 from .model import IMAGE_SIZE, SSD300, init_variables
 from .ops.int8_conv import apply_int8_kernels
 from .ops.stem import stem_conv_pool
@@ -36,8 +37,14 @@ class Detector:
     the weights are drawn at random from ``rng_seed``.  ``fold_bn`` folds
     BatchNorm into the convs; ``stem_kernel`` (which needs ``fold_bn``) runs
     conv1_1 + conv1_2 + pool through :func:`ssdx_torch.ops.stem.stem_conv_pool`.
-    ``device`` defaults to ``cuda``.  ``width_mult`` narrows every backbone
-    layer, for tests.
+    ``device`` defaults to the mesh's device, or without a mesh to ``cuda``.
+    ``width_mult`` narrows every backbone layer, for tests.
+
+    ``mesh`` (:mod:`ssdx_torch.mesh`): data-parallel inference.  Every rank
+    calls ``forward`` with the same whole batch, runs its shard through the
+    stem kernel and the model, and gathers every rank's heads, so each rank
+    returns the whole batch's result; SSD inference needs no other
+    communication.
     """
 
     def __init__(
@@ -51,8 +58,11 @@ class Detector:
         stem_kernel: bool = False,
         device=None,
         width_mult: float = 1.0,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
         self.class_to_idx = dict(class_to_idx)
         self.idx_to_class = {v: k for k, v in class_to_idx.items()}
         self.num_classes = len(class_to_idx) + 1
@@ -153,8 +163,23 @@ class Detector:
     def forward(self, images) -> tuple[torch.Tensor, torch.Tensor]:
         """Raw heads: images [B,300,300,3] (normalized, NHWC) ->
         (loc [B,P,4], cls [B,P,C]) float32 on the detector's device.  Once
-        :meth:`quantize_int8` has run, the post-stem backbone is int8."""
+        :meth:`quantize_int8` has run, the post-stem backbone is int8.
+
+        With a mesh the batch is zero-padded up to a multiple of the mesh
+        size, each rank computes its shard, the shards are gathered in rank
+        order and the pad rows are dropped."""
         x = torch.as_tensor(images, device=self.device)
+        if self.mesh is None:
+            return self._forward_local(x)
+        b = x.shape[0]
+        pad = (-b) % self.mesh.size
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        loc, conf = self._forward_local(shard_batch(x, self.mesh))
+        loc, conf = all_gather_batch(loc, self.mesh), all_gather_batch(conf, self.mesh)
+        return loc[:b], conf[:b]
+
+    def _forward_local(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if self._int8_forward is not None:
             return self._int8_forward(self.quant_params, self._stem(x), self.dtype)
         if self.stem_kernel:

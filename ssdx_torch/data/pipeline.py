@@ -21,9 +21,11 @@ observable behaviour:
 Bootstrap oversampling: file repetition by object count: 0 objects x1,
 1-2 x2, 3-6 x3, 7-9 x4, >=10 x5.
 
-One process, one device: the JAX loader's ``mesh``, ``process_index`` and
-``process_count`` (each process loading its slice of a global batch) wait
-for the port's multi-process slice.
+Under a ``mesh`` (:mod:`ssdx_torch.mesh`) ``batch_size`` is the global batch:
+every rank derives the same epoch permutation and decodes only its
+contiguous slice of each global batch, and draws the whole global batch's
+augmentation numbers from the same seeded generator before it takes its
+rows, so the ranks' batches together are the single-process batch.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from .. import resolve_device
 from ..train.step import Batch
-from .augment import AugmentConfig, augment_batch, preprocess_batch
+from .augment import AugmentConfig, AugmentDraws, augment_core, preprocess_batch, sample_draws
 
 __all__ = ["bootstrap_repeats", "bootstrap_indices", "DetectionLoader", "LoadedBatch"]
 
@@ -80,8 +82,14 @@ class DetectionLoader:
 
     ``dataset`` is a :class:`~ssdx_torch.data.dataset.DetectionDataset` or
     any object with its ``__len__``, ``load_image``, ``annotations``,
-    ``max_boxes_per_image`` and ``native_size``.  ``device=None`` is the GPU
-    (see :func:`ssdx_torch.resolve_device`).
+    ``max_boxes_per_image`` and ``native_size``.  ``device=None`` is the
+    mesh's device, or without a mesh the GPU (see
+    :func:`ssdx_torch.resolve_device`).
+
+    ``mesh``: each rank loads ``batch_size // mesh.size`` images of every
+    global batch; ``LoadedBatch.count`` stays the global count of real
+    images.  ``process_index`` and ``process_count`` override the mesh's rank
+    and size (tests); a count above 1 needs a mesh.
     """
 
     def __init__(
@@ -98,11 +106,28 @@ class DetectionLoader:
         prefetch: bool = True,
         cache_images: bool = False,
         device=None,
+        mesh=None,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.train = train
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if process_count is None:
+            process_count = 1 if mesh is None else mesh.size
+        if process_index is None:
+            process_index = 0 if mesh is None else mesh.rank
+        self.process_count, self.process_index = process_count, process_index
+        if batch_size % process_count:
+            raise ValueError(f"global batch_size={batch_size} must divide evenly over "
+                             f"{process_count} processes")
+        self.local_batch_size = batch_size // process_count
+        if process_count > 1 and mesh is None:
+            raise ValueError("multi-process loading requires a mesh")
         self.stats = {"decoded": 0}
         if source_size is None:
             # The dataset's uniform square native resolution, so that eval is
@@ -211,8 +236,12 @@ class DetectionLoader:
     def _to_device(self, arrays) -> Batch:
         images_u8, boxes, labels, valid = map(self._put, arrays)
         if self.train:
-            img, b01, lb, vd = augment_batch(self._gen, images_u8, boxes, labels, valid,
-                                             self.augment_cfg)
+            # the global batch's draws, of which this rank takes its rows
+            draws = sample_draws(self._gen, self.batch_size, self.augment_cfg, self.device)
+            lo = self.process_index * self.local_batch_size
+            draws = AugmentDraws(*(d[lo:lo + self.local_batch_size] for d in draws))
+            img, b01, lb, vd = augment_core(images_u8, boxes, labels, valid, draws,
+                                            self.augment_cfg)
         else:
             img, b01 = preprocess_batch(images_u8, boxes)
             lb, vd = labels, valid
@@ -228,6 +257,9 @@ class DetectionLoader:
             count = len(chunk)
             if count < B:  # eval tail: wrap-around padding
                 chunk = np.concatenate([chunk, idx[: B - count]])
+            if self.process_count > 1:  # this rank's slice of the global batch
+                lo = self.process_index * self.local_batch_size
+                chunk = chunk[lo : lo + self.local_batch_size]
             yield LoadedBatch(self._to_device(self._assemble(chunk)), count)
         self._epoch += 1
 

@@ -17,12 +17,15 @@ evaluation protocol restricted to one IoU threshold, with torchmetrics'
   * mar_1 / mar_10 / mar_100: recall with at most 1/10/100 top-scoring
     detections per image per class, from one matching pass.
 
-The greedy matching is the numpy loop ``_match_with_ignore``; the JAX
-package also has a C++ matcher for it, which the port does not carry yet.
+The greedy matching runs in C++ (``ssdx_torch/ops/native.py``) where a
+compiler is present; the numpy loop ``_match_with_ignore`` is its oracle and
+the version for a machine without one.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops import native as _native
 
 __all__ = ["MeanAP", "AREA_RANGES"]
 
@@ -164,7 +167,11 @@ class MeanAP:
             n_gt += int((~gt_ig).sum())
             if len(scores) == 0:
                 continue
-            tp, mig = _match_with_ignore(det_boxes, gt_boxes, gt_ig, self.iou_threshold)
+            # the C++ loop covers every range (ignore-aware); the numpy loop
+            # is for a machine without a compiler
+            match = (_native.match_detections_ignore if _native.available()
+                     else _match_with_ignore)
+            tp, mig = match(det_boxes, gt_boxes, gt_ig, self.iou_threshold)
             det_area = _box_area(det_boxes)
             det_out = (det_area < lo) | (det_area > hi)
             # dtIg: matched-to-ignored, or unmatched with out-of-range area

@@ -39,18 +39,23 @@ def multibox_loss(
     pos_mask: torch.Tensor,  # [B, P] bool
     neg_pos_ratio: float = 3.0,
     img_valid: torch.Tensor | None = None,  # [B] bool; None = all valid
+    total_pos: torch.Tensor | None = None,  # scalar; None = this batch's own count
 ):
     """Return (total, loc_loss, conf_loss), each a float32 scalar tensor.
 
     ``img_valid`` excludes wrap-around padded tail images from every term
     (positives, mined negatives and the zero-positive ``int(ratio)`` floor),
     so a padded eval batch reports the loss of its real images alone.
+    ``total_pos`` replaces the divisor ``clamp(sum(pos), 1)``: a rank that
+    holds one shard of a global batch passes the global batch's count, and
+    the shards' losses then add up to the global batch's loss.
     """
     posf = pos_mask.float()
     if img_valid is not None:
         posf = posf * img_valid.float()[:, None]
     num_pos = posf.sum(dim=1)  # [B]
-    total_pos = torch.clamp(num_pos.sum(), min=1.0)
+    if total_pos is None:
+        total_pos = torch.clamp(num_pos.sum(), min=1.0)
 
     # ---- localization (positives only) ----
     l1 = smooth_l1(loc_pred - loc_target).sum(dim=-1)  # [B, P]

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .mesh import all_reduce_sum
 from .priors import BOXES_PER_LOCATION, NUM_PRIORS
 
 __all__ = ["SSD300", "IMAGE_SIZE", "BACKBONE", "init_variables", "update_running_stats"]
@@ -87,6 +88,10 @@ class ConvBNRelu(nn.Module):
     variance, one-pass ``E[y^2] - E[y]^2`` clamped at 0 in float32, as flax
     does, and updates the running statistics from them under ``no_grad``.
     (``F.batch_norm(training=True)`` would store the unbiased variance.)
+    Under a ``mesh`` the two per-channel sums are all-reduced before the
+    mean and variance are formed and the count is the global batch's, so
+    the statistics, and through the differentiable all-reduce the
+    gradient, are those of the whole batch (sync-BN).
     """
 
     def __init__(self, cin, cout, kernel, stride, padding, dilation, use_bn):
@@ -94,15 +99,19 @@ class ConvBNRelu(nn.Module):
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding, dilation)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5) if use_bn else None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
         c = self.conv
         y = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
                      c.padding, c.dilation)
         bn = self.bn
         if bn is not None and train:
             yf = y.float()
-            mean = yf.mean(dim=(0, 2, 3))
-            var = torch.clamp((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            n = yf.numel() // yf.shape[1] * (1 if mesh is None else mesh.size)
+            s1, s2 = yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))
+            if mesh is not None:  # one all-reduce for both sums
+                s1, s2 = all_reduce_sum(torch.stack([s1, s2]), mesh)
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
             update_running_stats(bn, mean.detach(), var.detach())
             mul = torch.rsqrt(var + bn.eps) * bn.weight
             y = ((yf - mean[:, None, None]) * mul[:, None, None]
@@ -145,17 +154,20 @@ class SSD300(nn.Module):
             for t, k in zip(_TAPS, BOXES_PER_LOCATION)
         )
 
-    def forward(self, x: torch.Tensor, train: bool = False, stem_input: bool | None = None):
+    def forward(self, x: torch.Tensor, train: bool = False, stem_input: bool | None = None,
+                mesh=None):
         """``train=True`` runs BatchNorm on batch statistics and updates the
-        running ones.  ``stem_input`` overrides the module's own setting for
-        this call: the train step's fused route hands the pooled stem map of
+        running ones; with a ``mesh`` (:mod:`ssdx_torch.mesh`) ``x`` is this
+        rank's shard and the statistics are the global batch's.
+        ``stem_input`` overrides the module's own setting for this call: the
+        train step's fused route hands the pooled stem map of
         :func:`ssdx_torch.ops.stem_train.stem_train` to the full model."""
         if stem_input is None:
             stem_input = self.stem_input
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
         taps = []
         for i in range(_STEM_LAYERS if stem_input else 0, len(self.layers)):
-            x = self.layers[i](x, train)
+            x = self.layers[i](x, train, mesh)
             if i in _TAPS:
                 taps.append(x)
             if i in _POOL_AFTER:

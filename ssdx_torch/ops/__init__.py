@@ -6,7 +6,14 @@
   backward (``csrc/stem_train.cu``);
 * :mod:`ssdx_torch.ops.int8_conv` — the int8 3x3 and 1x1 convs of the
   quantized serving path with their fused epilogue, and the bare int8 and
-  bf16 matmuls of the tensor-core probe (``csrc/int8_conv.cu``).
+  bf16 matmuls of the tensor-core probe (``csrc/int8_conv.cu``);
+* :mod:`ssdx_torch.ops.pool` and :mod:`ssdx_torch.ops.bn_relu_pool` — the
+  2x2 max pool and the fused BN + ReLU + pool, forward and backward
+  (``csrc/pool.cu``, ``csrc/bn_relu_pool.cu``);
+* :mod:`ssdx_torch.ops.repro` — the two probe ops of the data-parallel
+  repro tool (``csrc/repro.cu``);
+* :mod:`ssdx_torch.ops.native` — host C++ (no CUDA) behind the mAP matcher
+  (``csrc/ssdx_native.cpp``), built with ``g++``.
 
 A wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor (or raises); it never falls back.

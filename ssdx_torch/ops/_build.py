@@ -5,6 +5,10 @@ with ``nvcc`` for ``sm_90a`` into ``ssdx_torch/_build/lib<name>-<hash>.so``
 (the hash covers the source and the flags, so an edited source rebuilds).
 No PyTorch headers are involved, which keeps a build to seconds.  Build
 errors propagate as ``RuntimeError`` with nvcc's output.
+
+``build_host`` does the same with ``g++`` for a host-only ``csrc/<name>.cpp``
+(no CUDA); a machine without a compiler gets ``None`` from it, not an error.
+Nothing is ever built into the source tree.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "BUILD_DIR", "build_logs"]
+__all__ = ["build", "load", "build_host", "BUILD_DIR", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -28,6 +32,8 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # int8 epilogue have to round like their plain PyTorch versions, operation
 # by operation.
 _EXTRA = {"nms": ["-fmad=false"], "int8_conv": ["-fmad=false"]}
+
+_HOST = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()  # one build at a time within the process
@@ -87,3 +93,30 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(build(name)[name]))
         return _libs[name]
+
+
+def build_host(name: str) -> Path | None:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless it is built already;
+    the library's path, or None where no compiler is present or it fails."""
+    exe = shutil.which("g++")
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes() + " ".join(_HOST).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}-{h}.so"
+    with _lock:
+        if out.exists():
+            return out
+        if exe is None:
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            p = subprocess.run([exe, *_HOST, str(src), "-o", str(tmp)], capture_output=True,
+                               text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            build_logs[name] = str(e)
+            return None
+        build_logs[name] = p.stdout + p.stderr
+        if p.returncode != 0:
+            return None
+        os.replace(tmp, out)
+        return out

@@ -28,6 +28,14 @@ Contract (both versions; ``r()`` rounds to ``dtype``):
   * dx, db1 and db2 are exact zeros (train-mode BN subtracts the batch
     mean, so the conv biases cannot move the output).
 
+Under a ``mesh`` (:mod:`ssdx_torch.mesh`; the JAX kernel's ``axis_name``)
+``x`` is this rank's shard of the global batch: the per-channel sums of both
+BNs are all-reduced between the launches and ``n`` counts the global batch,
+so the statistics are the global batch's on every rank.  The backward uses
+the all-reduced BN sums inside dy2 and dy1 and returns this rank's *local*
+sums as dgamma and dbeta, and local dW1 and dW2: the train step's gradient
+all-reduce adds them up over the ranks.
+
 Weights are PyTorch's OIHW; images and the pooled map are NHWC.
 """
 from __future__ import annotations
@@ -37,6 +45,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..mesh import all_reduce_sum
 from . import _build
 
 __all__ = ["stem_train", "stem_train_ref", "pool_routing_ref", "StemTrain", "StemTrainRef",
@@ -62,29 +71,43 @@ def _col(v):
     return v[None, :, None, None]
 
 
-def _batch_stats(y, n, eps):
-    """(mean, biased var, rsqrt(var + eps)) of NCHW ``y`` over N, H, W."""
-    mean = y.sum((0, 2, 3)) / n
-    var = torch.clamp((y * y).sum((0, 2, 3)) / n - mean * mean, min=0.0)
-    return mean, var, torch.rsqrt(var + eps)
+def _global_n(B, mesh):
+    """Pixels per channel of the global batch (every rank holds ``B`` images)."""
+    return B * _H * _H * (1 if mesh is None else mesh.size)
+
+
+def _batch_stats(y, n, eps, mesh=None):
+    """(mean, biased var, rsqrt(var + eps)) of NCHW ``y`` over N, H, W, and
+    over the ranks of ``mesh``."""
+    sums = all_reduce_sum(torch.cat([y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))]), mesh)
+    return _stats_from_sums(sums, n, eps)
 
 
 def _affine(g, be, mean, inv):
     return g * inv, be - mean * g * inv
 
 
-def _ref_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype):
-    n = x.shape[0] * _H * _H
+def _ref_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh=None):
+    n = _global_n(x.shape[0], mesh)
     xin = _r(x.permute(0, 3, 1, 2), dtype)
     y1 = _r(F.conv2d(xin, _r(w1, dtype), _r(b1, dtype), padding=1), dtype)
-    mean1, var1, inv1 = _batch_stats(y1, n, eps)
+    mean1, var1, inv1 = _batch_stats(y1, n, eps, mesh)
     a1, c1 = _affine(g1, be1, mean1, inv1)
     y1n = _r(F.relu(y1 * _col(a1) + _col(c1)), dtype)
     y2 = _r(F.conv2d(y1n, _r(w2, dtype), b2.float(), padding=1), dtype)
-    mean2, var2, inv2 = _batch_stats(y2, n, eps)
+    mean2, var2, inv2 = _batch_stats(y2, n, eps, mesh)
     a2, c2 = _affine(g2, be2, mean2, inv2)
     p = F.max_pool2d(F.relu(y2 * _col(a2) + _col(c2)), 2).to(dtype)
     return p.permute(0, 2, 3, 1).contiguous(), (mean1, var1, inv1, mean2, var2, inv2), y1, y2
+
+
+def _global_sums(s1, s2, mesh):
+    """The BN backward's two sums over every rank's shard; the local ones
+    stay the returned dbeta and dgamma."""
+    if mesh is None:
+        return s1, s2
+    both = all_reduce_sum(torch.cat([s1, s2]), mesh)
+    return both[:_C], both[_C:]
 
 
 def _up(t):
@@ -101,24 +124,28 @@ def pool_routing_ref(t, dp):
     return torch.where(hit, _up(dp.float() / torch.clamp(cnt, min=1.0)), 0.0)
 
 
-def _ref_backward(dp, x, w1, w2, g1, be1, g2, be2, y1, y2, stats, dtype):
+def _ref_backward(dp, x, w1, w2, g1, be1, g2, be2, y1, y2, stats, dtype, mesh=None):
     mean1, var1, inv1, mean2, var2, inv2 = stats
-    n = x.shape[0] * _H * _H
+    n = _global_n(x.shape[0], mesh)
     y1, y2 = y1.float(), y2.float()
     a1, c1 = _affine(g1, be1, mean1, inv1)
     a2, c2 = _affine(g2, be2, mean2, inv2)
 
     dt2 = pool_routing_ref(F.relu(y2 * _col(a2) + _col(c2)), dp.permute(0, 3, 1, 2))
     xh2 = (y2 - _col(mean2)) * _col(inv2)
-    s1_2, s2_2 = dt2.sum((0, 2, 3)), (dt2 * xh2).sum((0, 2, 3))
-    dy2 = _r(_col(g2 * inv2) * (_r(dt2, dtype) - (_col(s1_2 / n) + xh2 * _col(s2_2 / n))), dtype)
+    s1_2, s2_2 = dt2.sum((0, 2, 3)), (dt2 * xh2).sum((0, 2, 3))  # this rank's
+    s1_2g, s2_2g = _global_sums(s1_2, s2_2, mesh)
+    dy2 = _r(_col(g2 * inv2) * (_r(dt2, dtype) - (_col(s1_2g / n) + xh2 * _col(s2_2g / n))),
+             dtype)
 
     w2r = _r(w2, dtype)
     dy1n = torch.nn.grad.conv2d_input(y1.shape, w2r, dy2, padding=1)
     dt1 = torch.where(y1 * _col(a1) + _col(c1) > 0, dy1n, 0.0)
     xh1 = (y1 - _col(mean1)) * _col(inv1)
     s1_1, s2_1 = dt1.sum((0, 2, 3)), (dt1 * xh1).sum((0, 2, 3))
-    dy1 = _r(_col(g1 * inv1) * (_r(dt1, dtype) - (_col(s1_1 / n) + xh1 * _col(s2_1 / n))), dtype)
+    s1_1g, s2_1g = _global_sums(s1_1, s2_1, mesh)
+    dy1 = _r(_col(g1 * inv1) * (_r(dt1, dtype) - (_col(s1_1g / n) + xh1 * _col(s2_1g / n))),
+             dtype)
 
     y1n = _r(F.relu(y1 * _col(a1) + _col(c1)), dtype)
     dw2 = torch.nn.grad.conv2d_weight(y1n, w2.shape, dy2, padding=1)
@@ -145,12 +172,12 @@ def _unsave(ctx):
 
 
 def _grads(ctx, dp, dw1, dg1, dbe1, dw2, dg2, dbe2):
-    """Gradients of (x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype)."""
+    """Gradients of (x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh)."""
     zeros = lambda: torch.zeros(_C, dtype=torch.float32, device=dp.device)
     dx = None
     if ctx.needs_input_grad[0]:
         dx = torch.zeros(ctx.x_meta[0], dtype=ctx.x_meta[1], device=dp.device)
-    return dx, dw1, zeros(), dg1, dbe1, dw2, zeros(), dg2, dbe2, None, None
+    return dx, dw1, zeros(), dg1, dbe1, dw2, zeros(), dg2, dbe2, None, None, None
 
 
 class StemTrainRef(torch.autograd.Function):
@@ -158,22 +185,25 @@ class StemTrainRef(torch.autograd.Function):
     rounded to ``dtype`` where the contract rounds."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype):
+    def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh=None):
         bn = tuple(t.float() for t in (g1, be1, g2, be2))
-        p, stats, y1, y2 = _ref_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps, dtype)
+        ctx.mesh = mesh
+        p, stats, y1, y2 = _ref_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps, dtype, mesh)
         return (p, *_save(ctx, x, (x, w1, w2), bn, y1.to(dtype), y2.to(dtype), stats, eps,
                           dtype))
 
     @staticmethod
     def backward(ctx, dp, *_stat_cotangents):
         (x, w1, w2), (g1, be1, g2, be2), y1, y2, stats = _unsave(ctx)
-        grads = _ref_backward(dp, x, w1, w2, g1, be1, g2, be2, y1, y2, stats, ctx.dtype)
+        grads = _ref_backward(dp, x, w1, w2, g1, be1, g2, be2, y1, y2, stats, ctx.dtype,
+                              ctx.mesh)
         return _grads(ctx, dp, *grads)
 
 
-def stem_train_ref(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat16):
+def stem_train_ref(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat16,
+                   mesh=None):
     """The plain version, on any device: ``(p, mean1, var1, mean2, var2)``."""
-    return StemTrainRef.apply(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype)
+    return StemTrainRef.apply(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh)
 
 
 # ------------------------------------------------------------- kernel route
@@ -234,10 +264,10 @@ def _empty(shape, dtype, dev):
     return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps):
+def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     B = x.shape[0]
-    n = B * _H * _H
+    n = _global_n(B, mesh)
     xb = x.detach().to(bf).contiguous()
     w1p = w1.detach().to(bf).float().permute(2, 3, 1, 0).reshape(27, _C).contiguous()
     b1p = b1.detach().to(bf).float().contiguous()
@@ -247,14 +277,14 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps):
     grid = min(B * _H, 4 * _SMS)
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_conv1", xb, w1p, b1p, y1, part, B, grid)
-    mean1, var1, inv1 = _stats_from_sums(_colsum(part), n, eps)
+    mean1, var1, inv1 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
     a1, c1 = _affine(g1, be1, mean1, inv1)
 
     y2 = _empty((B, _H, _H, _C), bf, dev)
     part = _empty((B * _TILES, 2 * _C), f32, dev)
     _launch("ssdx_st_stage2", 0, y1, None, w2p, _vec([a1, c1, b2.detach()], dev), None,
             y2, part, B)
-    mean2, var2, inv2 = _stats_from_sums(_colsum(part), n, eps)
+    mean2, var2, inv2 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
     a2, c2 = _affine(g2, be2, mean2, inv2)
 
     p = _empty((B, _H // 2, _H // 2, _C), bf, dev)
@@ -262,11 +292,11 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps):
     return p, (mean1, var1, inv1, mean2, var2, inv2), y1, y2, xb
 
 
-def _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats):
+def _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats, mesh=None):
     mean1, var1, inv1, mean2, var2, inv2 = stats
     bf, f32, dev = torch.bfloat16, torch.float32, dp.device
     B = dp.shape[0]
-    n = B * _H * _H
+    n = _global_n(B, mesh)
     a1, c1 = _affine(g1, be1, mean1, inv1)
     a2, c2 = _affine(g2, be2, mean2, inv2)
     dpb = dp.to(bf).contiguous()
@@ -277,28 +307,30 @@ def _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats):
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_route", y2, dpb, _vec([a2, c2, inv2, mean2], dev), dt2, part, B, grid)
     sums = _colsum(part)
-    s1_2, s2_2 = sums[:_C], sums[_C:]
+    s1_2, s2_2 = sums[:_C], sums[_C:]  # this rank's: the returned dbeta2, dgamma2
+    s1_2g, s2_2g = _global_sums(s1_2, s2_2, mesh)
 
     # E: BN2 backward, conv1_2^T, ReLU mask -> dt1, BN1 sums
     w2t = w2.detach().to(bf).flip(2, 3).permute(2, 3, 0, 1).contiguous()  # [dr'][dc'][co][ci]
     dt1 = _empty(y1.shape, bf, dev)
     part = _empty((B * _TILES, 2 * _C), f32, dev)
-    vec_e = _vec([g2 * inv2, mean2, inv2, s1_2 / n, s2_2 / n, a1, c1, mean1, inv1], dev)
+    vec_e = _vec([g2 * inv2, mean2, inv2, s1_2g / n, s2_2g / n, a1, c1, mean1, inv1], dev)
     _launch("ssdx_st_stage2", 1, dt2, y2, w2t, vec_e, y1, dt1, part, B)
     sums = _colsum(part)
     s1_1, s2_1 = sums[:_C], sums[_C:]
+    s1_1g, s2_1g = _global_sums(s1_1, s2_1, mesh)
 
     # dW2: split-K over conv tiles, one slice per SM
     grid = min(B * _TILES, _SMS)
     part = _empty((grid, 9 * _C * _C), f32, dev)
-    vec_w2 = _vec([a1, c1, g2 * inv2, mean2, inv2, s1_2 / n, s2_2 / n], dev)
+    vec_w2 = _vec([a1, c1, g2 * inv2, mean2, inv2, s1_2g / n, s2_2g / n], dev)
     _launch("ssdx_st_dw2", y1, dt2, y2, vec_w2, part, B, grid)
     dw2 = _colsum(part).view(3, 3, _C, _C).permute(3, 2, 0, 1).contiguous()
 
     # F: BN1 backward and dW1
     grid = min(B * _H, 2 * _SMS)
     part = _empty((grid, 27 * _C), f32, dev)
-    vec_f = _vec([g1 * inv1, mean1, inv1, s1_1 / n, s2_1 / n], dev)
+    vec_f = _vec([g1 * inv1, mean1, inv1, s1_1g / n, s2_1g / n], dev)
     _launch("ssdx_st_dw1", xb, y1, dt1, vec_f, part, B, grid)
     dw1 = _colsum(part).view(3, 3, 3, _C).permute(3, 2, 0, 1).contiguous()
     return dw1, s2_1, s1_1, dw2, s2_2, s1_2
@@ -310,30 +342,33 @@ class StemTrain(torch.autograd.Function):
     fixed-order colsum reductions between them."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype):
+    def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh=None):
         bn = tuple(t.detach().float() for t in (g1, be1, g2, be2))
-        p, stats, y1, y2, xb = _kernel_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps)
+        ctx.mesh = mesh
+        p, stats, y1, y2, xb = _kernel_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps, mesh)
         return (p, *_save(ctx, x, (xb, w2), bn, y1, y2, stats, eps, dtype))
 
     @staticmethod
     def backward(ctx, dp, *_stat_cotangents):
         (xb, w2), (g1, be1, g2, be2), y1, y2, stats = _unsave(ctx)
-        grads = _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats)
+        grads = _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats, ctx.mesh)
         return _grads(ctx, dp, *grads)
 
 
-def stem_train(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat16):
+def stem_train(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat16,
+               mesh=None):
     """``[B,300,300,3]`` images -> ``(p [B,150,150,64], mean1, var1, mean2,
     var2)``, differentiable in the weights and BN parameters.
 
     CPU tensors take the plain version; CUDA tensors take the kernels, which
-    compute in bfloat16 only.
+    compute in bfloat16 only.  With a ``mesh``, ``x`` is this rank's shard and
+    the statistics are the global batch's (see the module docstring).
     """
     global launches
     dev = x.device
     args = (x, w1, b1, g1, be1, w2, b2, g2, be2)
     if dev.type == "cpu":
-        return StemTrainRef.apply(*args, eps, dtype)
+        return StemTrainRef.apply(*args, eps, dtype, mesh)
     if dev.type != "cuda":
         raise ValueError(f"stem_train: unsupported device {dev}")
     if dtype != torch.bfloat16:
@@ -346,6 +381,6 @@ def stem_train(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat
         raise ValueError(f"stem_train weights must be {want}; got {shapes}")
     if any(t.device != dev for t in args[1:]):
         raise ValueError("stem_train: images and weights must share a device")
-    out = StemTrain.apply(*args, eps, dtype)
+    out = StemTrain.apply(*args, eps, dtype, mesh)
     launches += 1
     return out

@@ -1,1 +1,1 @@
-"""Measurement tools of the port that run on a GPU."""
+"""Measurement and fault-finding tools of the port that run on a GPU."""

@@ -16,6 +16,12 @@ Loaders are any iterables of :class:`~ssdx_torch.train.step.Batch`, or of
 objects with ``batch`` and ``count`` (a wrap-padded tail batch).  Timing:
 per-batch ``data wait`` and ``step`` times; reading the loss as a float
 waits for the device, so the step time is the device's.
+
+Under a ``mesh`` (:mod:`ssdx_torch.mesh`) every rank runs the same loop on
+its slices of the global batches.  The step's metrics are global already;
+``evaluate`` gathers every rank's detections and ground truth per batch, so
+each rank accumulates the whole validation set and computes the same mAP,
+and the checkpoint calls go to the directory format.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ import numpy as np
 import torch
 
 from ..eval.map import MeanAP
+from ..mesh import all_gather_batch
 from ..model import IMAGE_SIZE
-from ..predict import to_pylist
+from ..predict import Detections, to_pylist
 from .checkpoint import save_checkpoint
 from .schedule import get_learning_rate, set_learning_rate
 
@@ -72,32 +79,42 @@ def merge_results(d1: dict, d2: dict) -> dict:
     return out
 
 
-def _targets_for_map(batch) -> list[dict]:
+def _targets_for_map(gt_boxes, gt_labels, gt_valid) -> list[dict]:
     """Per-image GT dicts in 300x300 pixel coords for the mAP accumulator."""
-    boxes = _np(batch.gt_boxes) * IMAGE_SIZE
-    labels = _np(batch.gt_labels)
-    valid = _np(batch.gt_valid).astype(bool)
+    boxes = _np(gt_boxes) * IMAGE_SIZE
+    labels = _np(gt_labels)
+    valid = _np(gt_valid).astype(bool)
     return [{"boxes": boxes[i][valid[i]], "labels": labels[i][valid[i]]}
             for i in range(boxes.shape[0])]
 
 
-def evaluate(eval_step: Callable, state, loader: Iterable, timing: bool = False) -> dict:
-    """One evaluation pass: losses + mAP@0.5."""
+def evaluate(eval_step: Callable, state, loader: Iterable, timing: bool = False,
+             mesh=None) -> dict:
+    """One evaluation pass: losses + mAP@0.5.  With a ``mesh``, ``loader``
+    yields this rank's slices with the global ``count``, and ``eval_step``
+    was built with the same mesh."""
     metric = MeanAP(iou_threshold=0.5)
     losses = {"loss": 0.0, "loss_loc": 0.0, "loss_conf": 0.0}
     n_batches = 0
     t_pred = 0.0
+    rank = 0 if mesh is None else mesh.rank
     for item in loader:
         batch, count = _unpack(item)
-        img_valid = np.arange(batch.images.shape[0]) < count
+        local = batch.images.shape[0]
+        img_valid = rank * local + np.arange(local) < count
         t0 = time.perf_counter()
         metrics, det = eval_step(state, batch, img_valid)
+        gt = (batch.gt_boxes, batch.gt_labels, batch.gt_valid)
+        if mesh is not None:  # every rank's images, in rank order
+            dev = det.valid.device
+            det = Detections(*(all_gather_batch(t, mesh) for t in det))
+            gt = tuple(all_gather_batch(torch.as_tensor(t, device=dev), mesh) for t in gt)
         preds = to_pylist(det)  # copies to the host: waits for the device
         t_pred += time.perf_counter() - t0
         for k in losses:
             losses[k] += float(metrics[k])
         # trim wrap-around padded tail images before metric accumulation
-        metric.update(preds[:count], _targets_for_map(batch)[:count])
+        metric.update(preds[:count], _targets_for_map(*gt)[:count])
         n_batches += 1
     n = max(n_batches, 1)
     t0 = time.perf_counter()
@@ -129,6 +146,7 @@ def fit(
     initial_best_err: float | None = None,
     lr_controller=None,
     log: Callable[[str], None] = print,
+    mesh=None,
 ) -> tuple[Any, dict]:
     """Run the train/eval cycle; returns (final_state, results dict).
 
@@ -137,7 +155,8 @@ def fit(
     :class:`~ssdx_torch.train.schedule.ReduceOnPlateau`, stepped once per
     epoch with the validation loss; the resulting LR is written into the
     optimizer's parameter groups (an optimizer built with
-    ``scheduler="plateau"``).
+    ``scheduler="plateau"``).  ``mesh``: every rank calls ``fit`` with steps
+    and loaders built on the same mesh.
     """
     if save_model and save_dir is None:
         raise TypeError("If the model is to be saved, save_dir must be specified.")
@@ -189,7 +208,7 @@ def fit(
         }
 
         # ---- eval ----
-        test_dict = evaluate(eval_step, state, val_loader_fn(), timing=timing)
+        test_dict = evaluate(eval_step, state, val_loader_fn(), timing=timing, mesh=mesh)
         val_map = test_dict["mAP"]["map_50"]
         val_err = test_dict["testing loss"]
 
@@ -237,7 +256,7 @@ def fit(
                     if save_model:
                         save_checkpoint(epoch=epoch + past_epochs, state=state,
                                         loss_dict=_loss_dict(), best_metric=val_err,
-                                        outdir=save_dir, tag="last")
+                                        outdir=save_dir, tag="last", mesh=mesh)
                     break
 
         # ---- checkpointing (tag policy) ----
@@ -250,7 +269,7 @@ def fit(
             will_save_best = save_best_model and (val_err < best_err)
 
             common = dict(epoch=epoch + past_epochs,  # 0-based index of completed epoch
-                          state=state, loss_dict=_loss_dict(), outdir=save_dir)
+                          state=state, loss_dict=_loss_dict(), outdir=save_dir, mesh=mesh)
             if will_save_last:
                 save_checkpoint(best_metric=val_err, tag="last", **common)
             if will_save_period:

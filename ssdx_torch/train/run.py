@@ -7,7 +7,14 @@ warmup-cosine schedule, auto-resume from ``{save_dir}/last.ckpt`` when
 present, then runs the train/eval cycle with the reference's thresholds
 (match IoU 0.4, eval score 0.2 / NMS 0.3 / max 100) and finally exports a
 weights-only ``last.weights`` for serving, in the layout both packages'
-``load_params`` read.  One process and one device: there is no mesh.
+``load_params`` read.
+
+Data parallelism follows the launcher's environment (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): under ``torchrun
+--nproc-per-node N -m ssdx_torch.train.run ...`` every rank joins the process
+group, ``batch_size`` is the global batch, and the mesh goes to both loaders,
+both steps and the checkpoint calls; only rank 0 logs and writes
+``last.weights``.  A bare ``python -m`` stays one process.
 
 Usage: ``python -m ssdx_torch.train.run --train-dir data/train [--config
 cfg.json] [--save-dir DIR] [--epochs N] [--no-resume] [--smoke]``
@@ -21,11 +28,11 @@ from pathlib import Path
 import torch
 
 from .. import priors as P
-from .. import resolve_device
 from ..config import Config
 from ..data.augment import AugmentConfig
 from ..data.dataset import DetectionDataset
 from ..data.pipeline import DetectionLoader
+from ..mesh import create_mesh, initialize_distributed
 from ..model import SSD300, init_variables
 from ..weights import variables_from_torch
 from .checkpoint import load_checkpoint, save_params
@@ -44,6 +51,8 @@ def run(cfg: Config, epochs: int | None = None, resume: bool = True, log=print, 
     from ..data.split import make_train_test_split  # needs scikit-learn
 
     d = cfg.data
+    if create_mesh(device).rank != 0:
+        log = lambda *_: None
     full = DetectionDataset(d.train_dir)
     train_ds, val_ds = make_train_test_split(full, test_size=d.val_fraction, rand_state=d.seed)
     log(f"dataset: {len(train_ds)} train / {len(val_ds)} val images, "
@@ -57,10 +66,16 @@ def train_on(train_ds, val_ds, num_classes: int, cfg: Config, epochs: int | None
              resume: bool = True, log=print, device=None):
     """Everything of :func:`run` after the split: the two loaders over the
     given datasets, model, optimizer, auto-resume, ``fit`` and the
-    ``last.weights`` export; returns (state, results)."""
+    ``last.weights`` export; returns (state, results).  Under
+    ``torch.distributed`` every rank calls it with the same arguments."""
     d, t, e = cfg.data, cfg.train, cfg.eval
     epochs = epochs if epochs is not None else t.epochs
-    dev = resolve_device(device)
+    mesh = create_mesh(device)
+    dev = mesh.device
+    if mesh.size == 1:
+        mesh = None  # one process: the plain single-device path
+    elif mesh.rank != 0:
+        log = lambda *_: None
 
     aug = AugmentConfig(
         zoom_out_prob=d.zoom_out_prob,
@@ -69,7 +84,7 @@ def train_on(train_ds, val_ds, num_classes: int, cfg: Config, epochs: int | None
         large_min_scale=d.large_min_scale,
     )
     common = dict(source_size=d.source_size, max_boxes=d.max_boxes, num_workers=d.num_workers,
-                  seed=d.seed, cache_images=d.cache_images, device=dev)
+                  seed=d.seed, cache_images=d.cache_images, device=dev, mesh=mesh)
     # Loader objects are persistent (their thread pools are reused); fit()
     # iterates them again every epoch.
     train_loader = DetectionLoader(train_ds, d.batch_size, train=True, bootstrap=d.bootstrap,
@@ -94,13 +109,15 @@ def train_on(train_ds, val_ds, num_classes: int, cfg: Config, epochs: int | None
     )
     plateau = t.scheduler == "plateau"
     state = create_train_state(model, optimizer, None if plateau else sched,
-                               init_variables(num_classes, seed=t.seed, width_mult=t.width_mult))
+                               init_variables(num_classes, seed=t.seed, width_mult=t.width_mult),
+                               mesh=mesh)
 
     past_train_dict = None
     best_err = None
     resume_path = Path(t.save_dir) / "last.ckpt"
     if resume and resume_path.exists():
-        state, start_epoch, best_err, past_train_dict = load_checkpoint(resume_path, state)
+        state, start_epoch, best_err, past_train_dict = load_checkpoint(resume_path, state,
+                                                                        mesh=mesh)
         # start_epoch = number of completed epochs; only train the remainder
         # (running the same command again after an interruption must not
         # train the full configured count again).
@@ -113,7 +130,7 @@ def train_on(train_ds, val_ds, num_classes: int, cfg: Config, epochs: int | None
         epochs = remaining
 
     pri = P.create_priors()
-    kw = dict(iou_thresh=t.iou_thresh, neg_pos_ratio=t.neg_pos_ratio)
+    kw = dict(iou_thresh=t.iou_thresh, neg_pos_ratio=t.neg_pos_ratio, mesh=mesh)
     train_step = make_train_step(model, pri, P.priors_xyxy(pri), fused_stem=t.fused_stem, **kw)
     eval_step = make_eval_step(model, pri, P.priors_xyxy(pri), score_thresh=e.score_thresh,
                                nms_thresh=e.nms_thresh, max_per_img=e.max_per_img, **kw)
@@ -135,10 +152,13 @@ def train_on(train_ds, val_ds, num_classes: int, cfg: Config, epochs: int | None
         initial_best_err=best_err,
         lr_controller=sched if plateau else None,
         log=log,
+        mesh=mesh,
     )
 
-    variables = variables_from_torch(state.model)
-    save_params(variables["params"], variables["batch_stats"], Path(t.save_dir) / "last.weights")
+    if mesh is None or mesh.rank == 0:
+        variables = variables_from_torch(state.model)
+        save_params(variables["params"], variables["batch_stats"],
+                    Path(t.save_dir) / "last.weights")
     return state, results
 
 
@@ -166,6 +186,7 @@ def main(argv=None) -> None:
         )
         args.epochs = 2
 
+    initialize_distributed()
     run(cfg, epochs=args.epochs, resume=not args.no_resume)
 
 

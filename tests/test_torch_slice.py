@@ -175,3 +175,64 @@ def test_server_routes(server_url, path, status, marker):
         assert marker in r.text
     if status == 200 and marker == "/predict":
         assert "Untrained demo weights" in r.text  # the random-init banner
+
+
+def test_mesh_slice_matches_jax_on_demo_weights():
+    """The data-parallel slice: ssdx's Detector under a two-device mesh (the
+    three scenes are padded to four and cut again) against the port's
+    Detector in a one-rank process group, on the bundled weights in float32.
+    The same limits as the meshless slice above: equal labels, boxes within
+    0.05 px, scores within 1e-4."""
+    import jax
+
+    from ssdx.mesh import create_mesh as jax_create_mesh
+    from ssdx_torch import mesh as M
+    from torch_dist import free_port
+
+    ref_det = JaxDetector.from_weights(DEMO_WEIGHTS, CLASSES,
+                                       mesh=jax_create_mesh(jax.devices()[:2]))
+    M.initialize_distributed(init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                             device="cpu")
+    try:
+        det = Detector.from_weights(DEMO_WEIGHTS, CLASSES, mesh=M.create_mesh("cpu"))
+        assert det.mesh.backend == "gloo" and det.device.type == "cpu"
+        images = np.concatenate([det.preprocess_pil(Image.open(p)) for p in EXAMPLES])
+        gots = det.predict(images, **KW)
+    finally:
+        M.finalize_distributed()
+    refs = ref_det.predict(images, **KW)
+    assert len(refs) == len(gots) == 3 and sum(len(r["labels"]) for r in refs) >= 3
+    for ref, got in zip(refs, gots):
+        np.testing.assert_array_equal(got["labels"], ref["labels"])
+        np.testing.assert_allclose(got["boxes"], ref["boxes"], rtol=0, atol=0.05)
+        np.testing.assert_allclose(got["scores"], ref["scores"], rtol=0, atol=1e-4)
+
+
+def test_eval_slice_runs_the_native_matcher_and_the_mesh_arguments(tmp_path, monkeypatch):
+    """The eval slice end to end at width 0.25: a SynthDrive directory from
+    the port's generator, weights exported by the port and read back,
+    evaluate_weights on the CPU: the mAP accumulator goes through the C++
+    matcher, and the result equals a second pass through the numpy matcher
+    exactly (the two matchers flag the same detections)."""
+    from ssdx_torch.data import synth
+    from ssdx_torch.eval import map as mapmod
+    from ssdx_torch.eval.run import evaluate_weights
+    from ssdx_torch.model import init_variables
+    from ssdx_torch.train.checkpoint import save_params
+
+    synth.generate_dataset(tmp_path / "test", 6, seed=3, size=128)
+    v = init_variables(6, seed=0, width_mult=0.25)
+    w = save_params(v["params"], v["batch_stats"], tmp_path / "m.weights")
+    kw = dict(batch_size=4, bfloat16=False, num_workers=2, width_mult=0.25, score_thresh=0.01,
+              device="cpu")
+    calls = []
+    real = mapmod._native.match_detections_ignore
+    monkeypatch.setattr(mapmod._native, "match_detections_ignore",
+                        lambda *a: calls.append(1) or real(*a))
+    out = evaluate_weights(w, tmp_path / "test", **kw)
+    assert calls and np.isfinite(out["testing loss"]) and len(out["classes"]) == 5
+    monkeypatch.setattr(mapmod._native, "available", lambda: False)
+    plain = evaluate_weights(w, tmp_path / "test", **kw)
+    assert out["mAP"]["map_50"] == plain["mAP"]["map_50"]
+    np.testing.assert_array_equal(out["mAP"]["map_per_class"], plain["mAP"]["map_per_class"])
+    assert out["testing loss"] == plain["testing loss"]
