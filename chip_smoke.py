@@ -46,9 +46,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (bit for bit) and against the dividing requantization of
      quant.apply_int8 (at most one int8 step, counted), and the heads of
      apply_int8_kernels against quant.apply_int8 within 0.5 with under 5 %
-     of elements past 0.05; then the bare matmuls of the int8 probe
-     (tools/bench_int8_mm.py, 2048^3) against torch._int_mm and their plain
-     versions: int8 exact, bf16 within 1e-3;
+     of elements past 0.05; then the bare matmuls of the int8 probe (S1,
+     csrc/gemm_sm90.cu through tools/bench_int8_mm.py, 2048^3) against
+     torch._int_mm and their plain versions: int8 exact, bf16 within 1e-3,
+     timed by CUDA events and by profiler device time (which must be
+     measured: a window that lost records of the kernel is run again, and
+     three lost windows fail the phase) beside torch._int_mm, torch.matmul
+     and torch.mm(out_dtype=float32), with the host cost of one call; and at
+     a ragged shape (M=1000, N=48, K=80) exact and within 1e-3;
  12. the int8 path: create_detector() under SSDX_INT8=1 and predict_pil on
      the three scenes, the launch counters set to 0 just before and read
      just after (21 int8 conv launches per forward: 16 of the 3x3 kernel, 5
@@ -82,14 +87,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      directory that data/synth.py writes (JPEG decode, bootstrap loader,
      augmentation on the card, bf16 with the stem kernel) for 2 epochs of
      bs=16 batches, and a second call that resumes from last.ckpt;
- 18. the probe kernels of the data-parallel repro tool (csrc/repro.cu)
-     against their plain versions: ew = tanh(x) * 1.5 on [256,256] f32 and
-     on an odd length within 1e-6, mm on 1024^3 bf16 and on a 512-row shard
-     within 1e-3 of the largest magnitude; then the tool
+ 18. the probe kernels of the data-parallel repro tool (ew: csrc/repro.cu;
+     mm: the nn kernel of csrc/gemm_sm90.cu) against their plain versions:
+     ew = tanh(x) * 1.5 on [256,256] f32 and on an odd length within 1e-6,
+     mm on 1024^3 bf16, on a 512-row shard and at a ragged shape (M=1008,
+     N=192, K=96) within 1e-3 of the largest magnitude, and the shard equal
+     bit for bit to the same rows of the whole product; then the tool
      (tools/repro_dist_kernels.py) with its three cases in a one-rank NCCL
      group: six ok lines, inside the mesh equal to outside bit for bit, the
      launch counters set to 0 just before and read just after; then both
-     kernels beside their plain version, library call and bound;
+     kernels beside their plain version, library call and bound, by CUDA
+     events and by profiler device time (measured for mm, or the run fails;
+     for ew null when the profiler lost its records in three windows), with
+     the host cost of one call: these times are taken right after phase 11,
+     where the profiler has kept every record in every run;
  19. the mesh path at one rank (the same NCCL group), full width:
      Detector(mesh=) on the three scenes equals phase 5's detections
      exactly; forward on B=5 equals the meshless forward; 3 bf16 bs=16
@@ -146,6 +157,7 @@ from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
 from ssdx_torch.tools import bench_int8_mm
+from ssdx_torch.tools import check_gemm
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
 from ssdx_torch.train.checkpoint import load_checkpoint
@@ -894,28 +906,41 @@ def int8_timing(dev, det, det8, launches, errs) -> list:
                 "layers": [v for v in rows.values() if (v["k"] == 1) == (key == "mm")]}
 
     return [
-        row("int8_conv (3x3)", "igemm_kernel<3, kConv>",
+        row("int8_conv (3x3)", "igemm_kernel<3>",
             "ssdx/ops/pallas_int8_conv.py:104", "ConvBNRelu_9", "conv3", launches["int8_conv3"]),
-        row("int8_conv (1x1)", "igemm_kernel<1, kConv>",
+        row("int8_conv (1x1)", "igemm_kernel<1>",
             "ssdx/ops/pallas_int8_conv.py:135", "ConvBNRelu_14", "mm", launches["int8_mm"]),
     ]
 
 
 def int8_probe() -> dict:
     """The int8 matmul probe through its own entry point (phase 11's last
-    part): checks both bare matmuls and times them."""
+    part): checks both bare matmuls and times them; then both at a ragged
+    shape."""
     int8_ops.launches_raw = 0
     res = bench_int8_mm.run(size=2048, iters=30, log=lambda *a: log(" ", *a))
     count = int8_ops.launches_raw
     assert count > 0, count
     log(f"int8 probe: {count} launches of the bare matmul kernels")
-    return {"name": "int8_mm_raw", "route": "cuda", "source": "ssdx_torch/csrc/int8_conv.cu",
+    for key in ("kernel_int8_device_ms", "kernel_bf16_device_ms"):
+        assert res[key] is not None, f"{key}: the profiler lost records in every window"
+    bad, rel = check_gemm.check_nt(1000, 48, 80, log=lambda m: log(" ", m))
+    return {"name": "int8_mm_raw", "route": "cuda", "source": "ssdx_torch/csrc/gemm_sm90.cu",
             "replaces": "scripts/bench_int8_mxu.py:55", "launches": count,
-            "max_abs_err": res["max_abs_err"], "ms": res["kernel_int8_ms"],
+            "max_abs_err": max(res["max_abs_err"], bad), "ms": res["kernel_int8_ms"],
             "plain_ms": res["plain_int8_ms"], "bound_ms": res["bound_int8_ms"],
             "bound_by": "operations", "library_ms": res["torch_int8_ms"],
-            "bf16_control": {"ms": res["kernel_bf16_ms"], "library_ms": res["torch_bf16_ms"],
-                             "bound_ms": res["bound_bf16_ms"], "rel_err": res["bf16_rel_err"]}}
+            "device_ms": res["kernel_int8_device_ms"],
+            "library_device_ms": res["torch_int8_device_ms"], "host_ms": res["kernel_host_ms"],
+            "library_host_ms": res["torch_host_ms"], "kernel": res["kernel_int8_name"],
+            "bf16_control": {"ms": res["kernel_bf16_ms"], "device_ms": res["kernel_bf16_device_ms"],
+                             "kernel": res["kernel_bf16_name"],
+                             "library_ms": res["torch_bf16_ms"],
+                             "library_device_ms": res["torch_bf16_device_ms"],
+                             "library_f32_out_ms": res["torch_bf16f32_ms"],
+                             "library_f32_out_device_ms": res["torch_bf16f32_device_ms"],
+                             "bound_ms": res["bound_bf16_ms"],
+                             "rel_err": max(res["bf16_rel_err"], rel)}}
 
 
 # --------------------------------------------------------------- phase 14
@@ -1276,14 +1301,19 @@ def check_repro(dev) -> dict:
         assert got.shape == ref.shape and torch.isfinite(got).all() and e <= EW_ATOL, e
         errs["ew"] = max(errs.get("ew", 0.0), e)
     x, y = ms[0]
-    for name, a in (("1024^3", x), ("512-row shard", x[512:])):
-        got, ref = repro_ops.mm(a, y), repro_ops.mm_ref(a, y)
+    g = torch.Generator(device=dev).manual_seed(18)
+    xr, yr = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+              for s in ((1008, 96), (96, 192)))
+    for name, a, b in (("1024^3", x, y), ("512-row shard", x[512:], y),
+                       ("ragged 1008x192x96", xr, yr)):
+        got, ref = repro_ops.mm(a, b), repro_ops.mm_ref(a, b)
         torch.cuda.synchronize()
         e, top = (got - ref).abs().max().item(), ref.abs().max().item()
         log(f"mm kernel vs plain, {name} bf16 -> f32: max |k-r| = {e:.3e}, max |r| = {top:.1f} "
             f"(limit {MM_RTOL} of it)")
         assert got.dtype == torch.float32 and torch.isfinite(got).all() and e <= MM_RTOL * top
         errs["mm"] = max(errs.get("mm", 0.0), e)
+    check_gemm.check_shard(x, y, log=lambda m: log(" ", m))
     return {k: {"max_abs_err": v} for k, v in errs.items()}
 
 
@@ -1305,38 +1335,69 @@ def repro_path(mesh) -> dict:
     return launches
 
 
-def repro_timing(dev, launches, errs) -> list:
+def repro_timing(dev) -> dict:
+    """Both probe kernels by CUDA events (the caller's wait, host cost
+    included) and by profiler device time, beside plain, library and bound;
+    the host cost of one call on inputs too small to keep the card busy.
+    main() runs it right after phase 11: at phase 18's place, after phases
+    12-17, the profiler has lost every record of these kernels in some runs
+    (PERF.md, open questions), never at phase 11's."""
     xs, ms, _ = repro_inputs(dev, seed=19)
+    device_ms, host_ms, fmt = bench_int8_mm.device_ms, bench_int8_mm.host_ms, bench_int8_mm.fmt
+    device_time = bench_int8_mm.device_time
     n = xs[0].numel()
+    ew_lib = lambda x: torch.tanh(x) * 1.5
     ew_ms = cuda_ms(repro_ops.ew, xs, iters=200, warmup=10)
     ew_plain = cuda_ms(repro_ops.ew_ref, xs, iters=200, warmup=10)
+    ew_dev = device_ms(repro_ops.ew, [(x,) for x in xs], iters=50, kernel="ew_kernel")
+    ew_lib_dev = device_ms(ew_lib, [(x,) for x in xs], iters=50)
     ew_bytes, ew_ops = 2 * n * 4, 2 * n
     ew_bound = max(ew_bytes / PEAK_BYTES, ew_ops / PEAK_F32) * 1e3
-    log(f"ew kernel [256,256] f32: {ew_ms:.5f} ms, plain and library (torch.tanh(x) * 1.5, two "
-        f"launches) {ew_plain:.5f} ms, bound {ew_bound:.6f} ms by bytes ({ew_bytes / 1e3:.0f} KB): "
-        f"launch-bound")
+    log(f"ew kernel [256,256] f32: {ew_ms:.5f} ms by events, {fmt(ew_dev, '.5f')} ms on the "
+        f"device; plain and library (torch.tanh(x) * 1.5, two launches) {ew_plain:.5f} ms by "
+        f"events, {fmt(ew_lib_dev, '.5f')} ms on the device; bound {ew_bound:.6f} ms by bytes "
+        f"({ew_bytes / 1e3:.0f} KB)")
+    mm_f32 = lambda x, y: torch.mm(x, y, out_dtype=torch.float32)
     mm_ms = cuda_ms(lambda a: repro_ops.mm(*a), ms, iters=50, warmup=5)
     mm_plain = cuda_ms(lambda a: repro_ops.mm_ref(*a), ms, iters=50, warmup=5)
     mm_lib = cuda_ms(lambda a: torch.matmul(*a), ms, iters=50, warmup=5)
+    mm_lib32 = cuda_ms(lambda a: mm_f32(*a), ms, iters=50, warmup=5)
+    mm_dev, mm_names = device_time(repro_ops.mm, ms, iters=50, kernel="gemm_kernel")
+    assert mm_dev is not None, "mm: the profiler lost records in every window"
+    mm_lib_dev, mm_lib32_dev = (device_ms(f, ms, iters=50) for f in (torch.matmul, mm_f32))
+    small = [(x[:64, :64].contiguous(), y[:64, :64].contiguous()) for x, y in ms]
+    mm_host, lib_host = host_ms(repro_ops.mm, small), host_ms(mm_f32, small)
     M = N = K = 1024
     ops, nbytes = 2 * M * N * K, (M * K + K * N) * 2 + M * N * 4
     t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
     mm_bound = max(t_ops, t_bytes) * 1e3
-    log(f"mm kernel 1024^3 bf16 -> f32: {mm_ms:.5f} ms = {ops / mm_ms / 1e9:.1f} TFLOP/s, plain "
-        f"(x.float() @ y.float()) {mm_plain:.5f} ms, library (torch.matmul in bf16, bf16 out) "
-        f"{mm_lib:.5f} ms, bound {mm_bound:.5f} ms ({t_ops * 1e3:.5f} by operations, "
-        f"{t_bytes * 1e3:.5f} by bytes)")
-    common = {"route": "cuda", "source": "ssdx_torch/csrc/repro.cu"}
-    return [
-        {"name": "ew", **common, "replaces": "scripts/repro_shardmap_pallas.py:68",
-         "launches": launches["ew"], "max_abs_err": errs["ew"]["max_abs_err"], "ms": ew_ms,
-         "plain_ms": ew_plain, "bound_ms": ew_bound, "bound_by": "bytes",
-         "library_ms": ew_plain},
-        {"name": "mm", **common, "replaces": "scripts/repro_shardmap_pallas.py:88",
-         "launches": launches["mm"], "max_abs_err": errs["mm"]["max_abs_err"], "ms": mm_ms,
-         "plain_ms": mm_plain, "bound_ms": mm_bound,
-         "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": mm_lib},
-    ]
+    log(f"mm kernel 1024^3 bf16 -> f32: {mm_ms:.5f} ms by events, {mm_dev:.5f} ms on the "
+        f"device = {ops / mm_dev / 1e9:.1f} TFLOP/s; plain (x.float() @ y.float()) {mm_plain:.5f} ms; "
+        f"library torch.mm(out_dtype=float32) {mm_lib32:.5f} ms by events, "
+        f"{fmt(mm_lib32_dev, '.5f')} on the device; torch.matmul (bf16 out) {mm_lib:.5f} / "
+        f"{fmt(mm_lib_dev, '.5f')}; bound "
+        f"{mm_bound:.5f} ms ({t_ops * 1e3:.5f} by operations, {t_bytes * 1e3:.5f} by bytes); "
+        f"host cost of one call (64^3) {mm_host * 1e3:.2f} us, library {lib_host * 1e3:.2f} us")
+    return {
+        "ew": {"name": "ew", "route": "cuda", "source": "ssdx_torch/csrc/repro.cu",
+               "replaces": "scripts/repro_shardmap_pallas.py:68", "ms": ew_ms,
+               "plain_ms": ew_plain, "bound_ms": ew_bound, "bound_by": "bytes",
+               "library_ms": ew_plain, "device_ms": ew_dev, "library_device_ms": ew_lib_dev},
+        "mm": {"name": "mm", "route": "cuda", "source": "ssdx_torch/csrc/gemm_sm90.cu",
+               "replaces": "scripts/repro_shardmap_pallas.py:88", "ms": mm_ms,
+               "plain_ms": mm_plain, "bound_ms": mm_bound,
+               "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": mm_lib32,
+               "device_ms": mm_dev, "library_device_ms": mm_lib32_dev, "host_ms": mm_host,
+               "library_host_ms": lib_host, "kernel": bench_int8_mm.short_name(mm_names),
+               "bf16_out_library": {"ms": mm_lib, "device_ms": mm_lib_dev}},
+    }
+
+
+def repro_rows(timing, launches, errs) -> list:
+    """Phase 18's rows of the kernels line: repro_timing's numbers with the
+    launches of the tool's run and the errors of check_repro."""
+    return [dict(timing[k], launches=launches[k], max_abs_err=errs[k]["max_abs_err"])
+            for k in ("ew", "mm")]
 
 
 # --------------------------------------------------------------- phase 19
@@ -1579,14 +1640,16 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    _build.build("stem", "nms", "stem_train", "int8_conv", "pool", "bn_relu_pool", "repro")
+    _build.build("stem", "nms", "stem_train", "int8_conv", "pool", "bn_relu_pool", "repro",
+                 "gemm_sm90")
     assert _build.build_host("ssdx_native") is not None, _build.build_logs.get("ssdx_native")
     for name, out in sorted(_build.build_logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    log(f"built csrc/stem.cu, nms.cu, stem_train.cu, int8_conv.cu, pool.cu, bn_relu_pool.cu and "
-        f"repro.cu for sm_90a, and ssdx_native.cpp with g++, in {time.perf_counter() - t:.1f} s")
+    log(f"built csrc/stem.cu, nms.cu, stem_train.cu, int8_conv.cu, pool.cu, bn_relu_pool.cu, "
+        f"repro.cu and gemm_sm90.cu for sm_90a, and ssdx_native.cpp with g++, in "
+        f"{time.perf_counter() - t:.1f} s")
 
     errs = {"stem": check_stem(dev), "nms": check_nms(dev)}
     det, launches, preds5 = main_path(dev)
@@ -1596,6 +1659,7 @@ def main() -> int:
     det8 = int8_detector()
     check_int8_walk(det8)
     probe_row = int8_probe()
+    repro_times = repro_timing(dev)
     launches8 = int8_path(det, det8)
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs)
@@ -1615,7 +1679,7 @@ def main() -> int:
                                     world_size=1, rank=0)
     mesh = mesh_lib.create_mesh()
     assert mesh.size == 1 and mesh.backend == "nccl", mesh
-    kernels += repro_timing(dev, repro_path(mesh), errs)
+    kernels += repro_rows(repro_times, repro_path(mesh), errs)
     ref = mesh_path(dev, mesh, det, preds5, train["kern"])
     mesh_lib.finalize_distributed()
     del det

@@ -1,8 +1,10 @@
-// Int8 convolutions of the quantized SSD300 serving path, and the bare
-// tensor-core matmuls of the int8 probe, for Hopper (sm_90a).
+// Int8 convolutions of the quantized SSD300 serving path, for Hopper (sm_90a).
 //
 // Replaces: ssdx/ops/pallas_int8_conv.py, int8_conv (the TPU kernels
-// _conv3_kernel and _mm_kernel), and scripts/bench_int8_mxu.py, _pallas_mm.
+// _conv3_kernel and _mm_kernel).  The bare matmuls of the int8 probe
+// (scripts/bench_int8_mxu.py, _pallas_mm), which were this kernel with a raw
+// store, moved to csrc/gemm_sm90.cu: a TMA + wgmma main loop that a later
+// version of these convolutions can reuse behind an implicit-GEMM loader.
 //
 // Contract (ssdx_torch/ops/int8_conv.py): x [B,H,W,Cin] int8 NHWC, weights
 // [Cout][kh][kw][Cin] int8 (K = kh*kw*Cin contiguous per output channel),
@@ -34,10 +36,6 @@
 // channels of one pixel: the epilogue stores 8 int8 (8 bytes) or 8 bf16
 // (16 bytes) at once, straight from registers.
 //
-// The bare matmuls (a [M,K] times b_t [N,K] transposed) are the same
-// kernel with the 1x1 loader and a raw store: int8 -> int32, and, with
-// mma.sync.m16n8k16 on the same bytes, bf16 -> float32.
-//
 // Bound: 2*M*N*K operations over the card's dense int8 rate (1,979 TOP/s;
 // mma.sync reaches a part of what wgmma does) against the input, weights
 // and outputs moved once at 3.35 TB/s.  The 3x3 layers of 256 channels and
@@ -62,12 +60,10 @@ constexpr int THREADS = 256;
 constexpr int STAGE_BYTES = (BM + BN) * LDS;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // 81,920: two blocks per SM
 
-enum Mode { kConv = 0, kRawInt32 = 1, kRawBf16 = 2 };
-
 struct Geom {
   int H, W, Cin, Cout, Ho, Wo, stride, dil, pad;
   int M;  // B*Ho*Wo
-  int K;  // bytes of one weight row: kh*kw*Cin (int8) or 2*K (bf16 matmul)
+  int K;  // bytes of one weight row: kh*kw*Cin
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -101,29 +97,9 @@ __device__ __forceinline__ void mma_tile(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// the same 32 bytes of K read as 16 bf16: bf16 x bf16 -> f32
-__device__ __forceinline__ void mma_tile(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store8(int* o, const int (&v)[8]) {
-  *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<int4*>(o + 4) = make_int4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(float* o, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
 // One thread's 8 neighbouring channels of one pixel: dequantize, bias,
@@ -157,7 +133,7 @@ __device__ __forceinline__ void conv_epilogue(const int (&v)[8], const float (&w
   }
 }
 
-template <int KS, int MODE, typename Acc>
+template <int KS>
 __global__ void __launch_bounds__(THREADS, 2)
 igemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
              const float* __restrict__ w_scale, const float* __restrict__ bias,
@@ -230,7 +206,7 @@ igemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
-  Acc acc[4][4][4];
+  int acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -284,13 +260,11 @@ igemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int n = n0 + wn * 32 + t * 8;
   if (n >= g.Cout) return;  // Cout is a multiple of 8: all 8 channels or none
   float ws[8], bs[8], inv[8];
-  if (MODE == kConv) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      ws[c] = w_scale[n + c];
-      bs[c] = bias[n + c];
-      inv[c] = out_q != nullptr ? inv_ns[n + c] : 0.0f;
-    }
+  for (int c = 0; c < 8; ++c) {
+    ws[c] = w_scale[n + c];
+    bs[c] = bias[n + c];
+    inv[c] = out_q != nullptr ? inv_ns[n + c] : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -299,26 +273,22 @@ igemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int m = m0 + wm * 64 + i * 16 + q + h * 8;
       if (m >= g.M) continue;
       const size_t off = (size_t)m * g.Cout + n;
-      Acc v[8];
+      int v[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         v[j * 2] = acc[i][j][h * 2];
         v[j * 2 + 1] = acc[i][j][h * 2 + 1];
       }
-      if constexpr (MODE == kConv) {
-        conv_epilogue(v, ws, bs, inv, out_q, out_tap, tap_kind, off);
-      } else {
-        store8(reinterpret_cast<Acc*>(out_tap) + off, v);
-      }
+      conv_epilogue(v, ws, bs, inv, out_q, out_tap, tap_kind, off);
     }
   }
 }
 
-template <int KS, int MODE, typename Acc>
+template <int KS>
 int launch(const void* x, const void* w, const void* w_scale, const void* bias,
            const void* inv_ns, void* out_q, void* out_tap, int tap_kind, const Geom& g,
            void* stream) {
-  auto kernel = igemm_kernel<KS, MODE, Acc>;
+  auto kernel = igemm_kernel<KS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -339,16 +309,7 @@ int launch_conv(const void* x, const void* w, const void* w_scale, const void* b
   if (M <= 0 || M > 0x7fffffffLL || Cin % 16 || Cout % 16) return (int)cudaErrorInvalidValue;
   if (out_q == nullptr && tap_kind == 0) return (int)cudaErrorInvalidValue;
   const Geom g{H, W, Cin, Cout, Ho, Wo, stride, dil, pad, (int)M, KS * KS * Cin};
-  return launch<KS, kConv, int>(x, w, w_scale, bias, inv_ns, out_q, out_tap, tap_kind, g,
-                                stream);
-}
-
-template <int MODE, typename Acc>
-int launch_raw(const void* a, const void* b_t, void* out, int M, int N, int Kbytes,
-               void* stream) {
-  if (M <= 0 || N % 16 || Kbytes % 16) return (int)cudaErrorInvalidValue;
-  const Geom g{M, 1, Kbytes, N, M, 1, 1, 1, 0, M, Kbytes};
-  return launch<1, MODE, Acc>(a, b_t, nullptr, nullptr, nullptr, nullptr, out, 0, g, stream);
+  return launch<KS>(x, w, w_scale, bias, inv_ns, out_q, out_tap, tap_kind, g, stream);
 }
 
 }  // namespace
@@ -374,16 +335,4 @@ extern "C" int ssdx_int8_mm(const void* x, const void* w, const void* w_scale,
   if (stride != 1 || pad != 0 || Ho != H || Wo != W) return (int)cudaErrorInvalidValue;
   return launch_conv<1>(x, w, w_scale, bias, inv_ns, out_q, out_tap, B, H, W, Cin, Cout, Ho,
                         Wo, stride, dil, pad, tap_kind, stream);
-}
-
-// a [M,K] int8, b_t [N,K] int8 -> out [M,N] int32
-extern "C" int ssdx_int8_mm_raw(const void* a, const void* b_t, void* out, int M, int N, int K,
-                                void* stream) {
-  return launch_raw<kRawInt32, int>(a, b_t, out, M, N, K, stream);
-}
-
-// a [M,K] bf16, b_t [N,K] bf16 -> out [M,N] float32
-extern "C" int ssdx_bf16_mm_raw(const void* a, const void* b_t, void* out, int M, int N, int K,
-                                void* stream) {
-  return launch_raw<kRawBf16, float>(a, b_t, out, M, N, 2 * K, stream);
 }

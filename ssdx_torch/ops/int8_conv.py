@@ -14,9 +14,10 @@ TPU kernels ``ssdx/ops/pallas_int8_conv.py::int8_conv`` (``_conv3_kernel``
 and ``_mm_kernel``); ``apply_int8_kernels`` is the counterpart of
 ``apply_int8_pallas`` there.
 
-``int8_mm_raw`` and ``bf16_mm_raw`` are bare tiled matmuls (int8 -> int32
-and bf16 -> f32) with the same main loop and no epilogue, the counterpart
-of ``scripts/bench_int8_mxu.py::_pallas_mm``;
+``int8_mm_raw`` and ``bf16_mm_raw`` are bare matmuls (int8 -> int32 and
+bf16 -> f32), the counterpart of ``scripts/bench_int8_mxu.py::_pallas_mm``.
+They launch the TMA + wgmma kernels of ``csrc/gemm_sm90.cu`` (through
+``ops/gemm.py``), not this module's conv kernels;
 ``ssdx_torch/tools/bench_int8_mm.py`` times them.
 
 Layouts: activations NHWC ``[B,H,W,C]``; ``kernel_q`` int8 of logical
@@ -30,7 +31,7 @@ import ctypes
 import torch
 
 from .. import quant
-from . import _build
+from . import _build, gemm
 
 __all__ = ["int8_conv", "int8_conv_ref", "apply_int8_kernels", "int8_mm_raw",
            "int8_mm_raw_ref", "bf16_mm_raw", "bf16_mm_raw_ref", "launches",
@@ -94,9 +95,6 @@ def _kernel():
             # x, w, w_scale, bias, inv_ns, out_q, out_tap, B, H, W, Cin, Cout,
             # Ho, Wo, stride, dilation, pad, tap_kind, stream
             fn.argtypes = [p] * 7 + [i] * 11 + [p]
-            fn.restype = i
-        for fn in (lib.ssdx_int8_mm_raw, lib.ssdx_bf16_mm_raw):
-            fn.argtypes = [p] * 3 + [i] * 3 + [p]  # a, b_t, out, M, N, K, stream
             fn.restype = i
         _lib = lib
     return _lib
@@ -230,6 +228,19 @@ def bf16_mm_raw_ref(a, b_t):
     return a.float() @ b_t.float().t()
 
 
+def _check_mm_raw(a, b_t, dtype, name):
+    if a.dtype != dtype or b_t.dtype != dtype or b_t.device != a.device:
+        raise ValueError(f"{name} takes two {dtype} matrices on one device")
+    if a.dim() != 2 or b_t.dim() != 2:
+        raise ValueError(f"{name}: a [M,K] and b_t [N,K], got {tuple(a.shape)} and "
+                         f"{tuple(b_t.shape)}")
+    (M, K), (N, K2) = a.shape, b_t.shape
+    kmul = 16 // a.element_size()
+    if min(M, N, K) < 1 or K != K2 or K % kmul or N % 16:
+        raise ValueError(f"{name}: a [M,K] and b_t [N,K] with K a multiple of {kmul} and "
+                         f"N of 16, got {tuple(a.shape)} and {tuple(b_t.shape)}")
+
+
 def _mm_raw(a, b_t, dtype, out_dtype, ref, name):
     global launches_raw
     dev = a.device
@@ -237,32 +248,23 @@ def _mm_raw(a, b_t, dtype, out_dtype, ref, name):
         return ref(a, b_t)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if a.dtype != dtype or b_t.dtype != dtype or b_t.device != dev:
-        raise ValueError(f"{name} takes two {dtype} matrices on one device")
-    (M, K), (N, K2) = a.shape, b_t.shape
-    kmul = 16 // a.element_size()
-    if K != K2 or K % kmul or N % 16:
-        raise ValueError(f"{name}: a [M,K] and b_t [N,K] with K a multiple of {kmul} and "
-                         f"N of 16, got {tuple(a.shape)} and {tuple(b_t.shape)}")
-    a, b_t = a.contiguous(), b_t.contiguous()
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_kernel(), f"ssdx_{name}")(
-            a.data_ptr(), b_t.data_ptr(), out.data_ptr(), M, N, K,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _check_mm_raw(a, b_t, dtype, name)
+    a, b_t = gemm.aligned(a), gemm.aligned(b_t)
+    out = torch.empty((a.shape[0], b_t.shape[0]), dtype=out_dtype, device=dev)
+    gemm.nt(a, b_t, out)
     launches_raw += 1
     return out
 
 
 def int8_mm_raw(a, b_t):
     """``a [M,K] int8 @ b_t [N,K]^T int8 -> [M,N] int32`` on the int8 tensor
-    cores: the 1x1 kernel's main loop with a raw int32 store."""
+    cores (``wgmma``): the kernel takes any M, N a multiple of 16, K of 16.
+    CPU tensors take :func:`int8_mm_raw_ref`."""
     return _mm_raw(a, b_t, torch.int8, torch.int32, int8_mm_raw_ref, "int8_mm_raw")
 
 
 def bf16_mm_raw(a, b_t):
-    """``a [M,K] bf16 @ b_t [N,K]^T bf16 -> [M,N] float32``: the same tiling
-    on the bf16 tensor cores, the control beside :func:`int8_mm_raw`."""
+    """``a [M,K] bf16 @ b_t [N,K]^T bf16 -> [M,N] float32``: the same kernel
+    on the bf16 tensor cores, the control beside :func:`int8_mm_raw`, with
+    K a multiple of 8.  CPU tensors take :func:`bf16_mm_raw_ref`."""
     return _mm_raw(a, b_t, torch.bfloat16, torch.float32, bf16_mm_raw_ref, "bf16_mm_raw")

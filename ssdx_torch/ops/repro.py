@@ -3,11 +3,13 @@
 
 ``ew(x)`` is ``tanh(x) * 1.5`` on float32 and ``mm(x, y)`` is ``x [M,K] bf16 @
 y [K,N] bf16 -> [M,N] float32`` with float32 accumulation, both row-major.  On
-a CUDA tensor each launches its hand-written kernel of ``csrc/repro.cu`` (the
-source's header gives the bounds and the design); on a CPU tensor it runs its
-plain PyTorch version (:func:`ew_ref`, :func:`mm_ref`), which is also the
-kernel's oracle on the card.  They replace the TPU kernels ``_ew_kernel`` and
-``_mm_kernel`` of ``scripts/repro_shardmap_pallas.py``.
+a CUDA tensor each launches its hand-written kernel: ``ew`` the one of
+``csrc/repro.cu``, ``mm`` the "nn" kernel of ``csrc/gemm_sm90.cu`` (TMA +
+wgmma, through ``ops/gemm.py``); the sources' headers give the bounds and the
+designs.  On a CPU tensor each runs its plain PyTorch version (:func:`ew_ref`,
+:func:`mm_ref`), which is also the kernel's oracle on the card.  They replace
+the TPU kernels ``_ew_kernel`` and ``_mm_kernel`` of
+``scripts/repro_shardmap_pallas.py``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, gemm
 
 __all__ = ["ew", "ew_ref", "mm", "mm_ref", "launches_ew", "launches_mm"]
 
@@ -39,18 +41,11 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("repro")
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p = ctypes.c_void_p
         lib.ssdx_repro_ew.argtypes = [p, p, ctypes.c_longlong, p]
-        lib.ssdx_repro_mm.argtypes = [p, p, p, i, i, i, p]
-        lib.ssdx_repro_ew.restype = lib.ssdx_repro_mm.restype = i
+        lib.ssdx_repro_ew.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _aligned(t):
-    """Contiguous and 16-byte aligned (a row slice of an odd-width matrix is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ew(x):
@@ -64,7 +59,7 @@ def ew(x):
         raise ValueError(f"ew: unsupported device {dev}")
     if x.dtype != torch.float32 or x.numel() == 0:
         raise ValueError(f"ew takes a non-empty float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    xc = _aligned(x)
+    xc = gemm.aligned(x)
     out = torch.empty_like(xc)
     with torch.cuda.device(dev):
         err = _kernel().ssdx_repro_ew(xc.data_ptr(), out.data_ptr(), xc.numel(),
@@ -75,30 +70,32 @@ def ew(x):
     return out
 
 
+def _check_mm(x, y):
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16 or y.device != x.device:
+        raise ValueError("mm takes two bfloat16 matrices on one device")
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
+        raise ValueError(f"mm: x [M,K] and y [K,N], got {tuple(x.shape)} and {tuple(y.shape)}")
+    (M, K), N = x.shape, y.shape[1]
+    if M < 1 or M % 16 or N < 1 or N % 64 or K < 1 or K % 32:
+        raise ValueError(f"the mm kernel needs M % 16 == 0, N % 64 == 0 and K % 32 == 0, "
+                         f"got M={M}, N={N}, K={K}")
+
+
 def mm(x, y):
     """``x [M,K] bf16 @ y [K,N] bf16 -> [M,N] float32``.  CPU tensors take the
     plain version; CUDA tensors take the kernel, which needs M to be a
-    multiple of 16, N of 64 and K of 32."""
+    multiple of 16, N of 64 and K of 32.  The kernel's tile and its order
+    over K do not depend on M: a row's result does not depend on which rows
+    share the call."""
     global launches_mm
     dev = x.device
     if dev.type == "cpu":
         return mm_ref(x, y)
     if dev.type != "cuda":
         raise ValueError(f"mm: unsupported device {dev}")
-    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16 or y.device != dev:
-        raise ValueError("mm takes two bfloat16 matrices on one device")
-    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
-        raise ValueError(f"mm: x [M,K] and y [K,N], got {tuple(x.shape)} and {tuple(y.shape)}")
-    (M, K), N = x.shape, y.shape[1]
-    if M < 1 or M % 16 or N % 64 or K % 32:
-        raise ValueError(f"the mm kernel needs M % 16 == 0, N % 64 == 0 and K % 32 == 0, "
-                         f"got M={M}, N={N}, K={K}")
-    xc, yc = _aligned(x), _aligned(y)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernel().ssdx_repro_mm(xc.data_ptr(), yc.data_ptr(), out.data_ptr(), M, N, K,
-                                      torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"mm kernel launch failed: CUDA error {err}")
+    _check_mm(x, y)
+    xc, yc = gemm.aligned(x), gemm.aligned(y)
+    out = torch.empty((x.shape[0], y.shape[1]), dtype=torch.float32, device=dev)
+    gemm.nn(xc, yc, out)
     launches_mm += 1
     return out
