@@ -36,8 +36,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
  10. timing: the bs=16 train step with and without the stem kernel, and
      the stem kernel's forward + backward beside its plain version, its
      library yardstick (cuDNN) and its bound;
- 11. the int8 conv kernels (csrc/int8_conv.cu) against their plain version,
-     bit for bit (int8 output and bf16 tap), at full width and bs=32 on one
+ 11. the int8 conv kernel (csrc/int8_conv.cu, TMA + wgmma) against its plain
+     version, bit for bit (int8 output and bf16 tap), at full width and bs=32 on one
      layer of each geometry: ConvBNRelu_2 (150x150, 64->128), _9 (38x38,
      512->512, both outputs), _13 (dilation 6), _16 (stride 2, both), _14
      (1x1, both), _22 (3x3 valid -> 1x1, tap only), operands from a seed over
@@ -56,15 +56,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      a ragged shape (M=1000, N=48, K=80) exact and within 1e-3;
  12. the int8 path: create_detector() under SSDX_INT8=1 and predict_pil on
      the three scenes, the launch counters set to 0 just before and read
-     just after (21 int8 conv launches per forward: 16 of the 3x3 kernel, 5
-     of the 1x1), detection_agreement with the bf16 detector of phase 5 at a
+     just after (21 int8 conv launches per forward: 16 for the 3x3 layers, 5
+     for the 1x1), detection_agreement with the bf16 detector of phase 5 at a
      match rate of at least 0.8, and POST /predict for each scene;
  13. timing: bs=32 predict_batched in int8 beside bf16, in turns; the
      post-stem walk in int8 beside the bf16 SSD300(stem_input=True) forward;
-     each checked layer's kernel beside its plain version, its bound and its
-     library yardstick (torch._int_mm plus the elementwise epilogue for the
-     1x1 layer; for the 3x3 layers cuDNN's bf16 conv of the same layer,
-     since no single PyTorch call computes an int8 conv);
+     and, taken right after phase 11 where the profiler keeps its records,
+     the kernel on every one of the 21 layers at bs=32 by profiler device
+     time (which must be measured, as in phase 11, for the kernel and its
+     yardstick) and by CUDA events, beside its bound and its library
+     yardstick by both (torch._int_mm plus the elementwise epilogue for the 1x1 layers;
+     for the 3x3 layers cuDNN's bf16 conv of the same layer, since no single
+     PyTorch call computes an int8 conv), and beside the float64 plain
+     version on the six layers of phase 11;
  14. the 2x2 max pool kernels (csrc/pool.cu) against their plain version in
      bf16 at [16,300,300,64], at an odd shape and on an input with forced
      ties: forward and dy equal bit for bit;
@@ -158,6 +162,7 @@ from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
 from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.tools import check_gemm
+from ssdx_torch.tools import check_int8_conv as int8_check
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
 from ssdx_torch.train.checkpoint import load_checkpoint
@@ -654,16 +659,13 @@ def train_timing(dev, launches, err) -> dict:
 
 # --------------------------------------------------------------- phase 11
 
-# (name, H, cin, cout, k, stride, dilation, pad, emit): one layer of each
-# geometry of the int8 backbone, at full width
-INT8_LAYERS = (
-    ("ConvBNRelu_2", 150, 64, 128, 3, 1, 1, 1, "int8"),
-    ("ConvBNRelu_9", 38, 512, 512, 3, 1, 1, 1, "both"),
-    ("ConvBNRelu_13", 19, 512, 1024, 3, 1, 6, 6, "int8"),
-    ("ConvBNRelu_16", 19, 256, 512, 3, 2, 1, 1, "both"),
-    ("ConvBNRelu_14", 19, 1024, 1024, 1, 1, 1, 0, "both"),
-    ("ConvBNRelu_22", 3, 128, 256, 3, 1, 1, 0, "f32"),
-)
+# One layer of each geometry of the int8 backbone, at full width, with the
+# emit of the walk (tools/check_int8_conv.py, layers): ConvBNRelu_2 (150x150,
+# 64->128), _9 (38x38, 512->512, both outputs), _13 (dilation 6), _16
+# (stride 2, both), _14 (1x1, both), _22 (3x3 valid -> 1x1, tap only).
+INT8_LAYERS = tuple(next(l for l in int8_check.layers() if l.name == f"ConvBNRelu_{i}")
+                    for i in (2, 9, 13, 16, 14, 22))
+KERNEL_NAME = "::conv_kernel<"  # the int8 conv kernel in the profiler's names
 # Heads of the kernel walk (reciprocal multiply) against quant.apply_int8
 # (division): max |diff|, and the share of elements past 0.05.  A handful of
 # requantized values differ by one int8 step, each step is 1/127 of its
@@ -673,35 +675,12 @@ INT8_LAYERS = (
 HEAD_ATOL, HEAD_FRAC = 0.5, 0.05
 
 
-def int8_layer_inputs(dev, layer, n_batches=1, seed=0):
-    """int8 activations and weights over the full +-127 range, and scales
-    that spread the requantized output over the int8 grid."""
-    name, H, cin, cout, k, *_ = layer
-    g = torch.Generator(device=dev).manual_seed(seed + H + cin)
-    ri = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
-    ru = lambda lo, hi: torch.rand(cout, generator=g, device=dev) * (hi - lo) + lo
-    xs = [ri(BS, H, H, cin) for _ in range(n_batches)]
-    kq = ri(cout, cin, k, k).contiguous(memory_format=torch.channels_last)
-    acc_std = (k * k * cin) ** 0.5 * 127 * 127 / 3
-    ws = ru(0.5, 1.5) / acc_std
-    bias = torch.randn(cout, generator=g, device=dev) * 0.1
-    ns = ru(0.01, 0.03)
-    return xs, (kq, ws, bias, ns)
-
-
-def int8_layer_call(fn, x, w, layer):
-    *_, stride, dilation, pad, emit = layer
-    kq, ws, bias, ns = w
-    return fn(x, kq, ws, bias, None if emit == "f32" else ns, stride=stride,
-              dilation=dilation, pad=pad, emit=emit, tap_dtype=torch.bfloat16)
-
-
 def check_int8_layers(dev) -> dict:
     worst = {"conv3": 0.0, "mm": 0.0}
     for layer in INT8_LAYERS:
-        xs, w = int8_layer_inputs(dev, layer)
-        got = int8_layer_call(int8_ops.int8_conv, xs[0], w, layer)
-        ref = int8_layer_call(int8_ops.int8_conv_ref, xs[0], w, layer)
+        xs, w = int8_check.layer_inputs(dev, layer, BS)
+        got = int8_check.call(int8_ops.int8_conv, xs[0], w, layer)
+        ref = int8_check.call(int8_ops.int8_conv_ref, xs[0], w, layer)
         torch.cuda.synchronize()
         got, ref = (o if isinstance(o, tuple) else (o,) for o in (got, ref))
         parts = []
@@ -712,12 +691,12 @@ def check_int8_layers(dev) -> dict:
             kind = "int8" if g.dtype == torch.int8 else "bf16 tap"
             spread = f", {g.unique().numel()} distinct values" if g.dtype == torch.int8 else ""
             parts.append(f"{kind} {tuple(g.shape)}: {bad} mismatches{spread}")
-            key = "mm" if layer[4] == 1 else "conv3"
+            key = "mm" if layer.k == 1 else "conv3"
             worst[key] = max(worst[key], err)
-            assert bad == 0 and torch.isfinite(g.float()).all(), (layer[0], kind, bad, err)
-        log(f"int8 kernel vs plain, {layer[0]} (bs={BS}, {layer[1]}x{layer[1]}, "
-            f"{layer[2]}->{layer[3]}, k={layer[4]} s={layer[5]} d={layer[6]} p={layer[7]}, "
-            f"emit={layer[8]}): " + "; ".join(parts))
+            assert bad == 0 and torch.isfinite(g.float()).all(), (layer.name, kind, bad, err)
+        log(f"int8 kernel vs plain, {layer.name} (bs={BS}, {layer.H}x{layer.H}, "
+            f"{layer.cin}->{layer.cout}, k={layer.k} s={layer.stride} d={layer.dilation} "
+            f"p={layer.pad}, emit={layer.emit}): " + "; ".join(parts))
     return {k: {"max_abs_err": v} for k, v in worst.items()}
 
 
@@ -826,17 +805,86 @@ def int8_path(det, det8) -> dict:
 def int8_bound(layer):
     """Least time for one layer at bs=32: its operations at the dense int8
     peak against input, weights, scales and outputs moved once."""
-    name, H, cin, cout, k, stride, dilation, pad, emit = layer
-    Ho = (H + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    Ho = (layer.H + 2 * layer.pad - layer.dilation * (layer.k - 1) - 1) // layer.stride + 1
     M = BS * Ho * Ho
-    ops = 2 * M * cout * k * k * cin
-    out_bytes = {"int8": 1, "f32": 2, "both": 3}[emit]  # int8 + bf16 tap
-    nbytes = BS * H * H * cin + k * k * cin * cout + 12 * cout + M * cout * out_bytes
+    ops = 2 * M * layer.cout * layer.k * layer.k * layer.cin
+    out_bytes = {"int8": 1, "f32": 2, "both": 3}[layer.emit]  # int8 + bf16 tap
+    nbytes = (BS * layer.H * layer.H * layer.cin + layer.k * layer.k * layer.cin * layer.cout
+              + 12 * layer.cout + M * layer.cout * out_bytes)
     t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", ops
 
 
-def int8_timing(dev, det, det8, launches, errs) -> list:
+def int8_layer_library(layer, w):
+    """The yardstick of one layer: for a 1x1 layer torch._int_mm plus the
+    elementwise epilogue; for a 3x3 layer cuDNN's bf16 conv + bias of the
+    same layer, since no single PyTorch call computes an int8 conv.  Returns
+    (name, fn of an int8 NHWC batch, fn's input from such a batch)."""
+    kq, ws, bias, ns = w
+    if layer.k == 1:
+        wt = kq.reshape(layer.cout, layer.cin).t().contiguous()  # [K,N] for torch._int_mm
+        inv = torch.reciprocal(ns)
+
+        def library(x):
+            y = torch.relu(torch._int_mm(x.reshape(-1, layer.cin), wt).float() * ws + bias)
+            return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8), \
+                y.to(torch.bfloat16)
+
+        return "torch._int_mm + elementwise epilogue", library, lambda x: x
+    wb, bb = kq.to(torch.bfloat16), bias.to(torch.bfloat16)
+    return ("cuDNN bf16 conv + bias of the same layer (no int8 conv call in PyTorch)",
+            lambda x: F.conv2d(x, wb, bb, layer.stride, layer.pad, layer.dilation),
+            lambda x: x.to(torch.bfloat16).permute(0, 3, 1, 2))  # channels-last
+
+
+def int8_layer_timing(dev) -> dict:
+    """Every one of the 21 layers at bs=32 with its walk's emit: the
+    kernel by CUDA events and by profiler device time, beside its bound and
+    its library yardstick (both times); the float64 plain version by events
+    for the six INT8_LAYERS only.  main() runs it right after phase 11,
+    where the profiler keeps its records (section 7 of PERF.md)."""
+    rows = {}
+    for layer in int8_check.layers():
+        xs, w = int8_check.layer_inputs(dev, layer, BS, n_batches=4, seed=7)
+        fn = lambda x: int8_check.call(int8_ops.int8_conv, x, w, layer)
+        k_ms = cuda_ms(fn, xs)
+        k_dev, names = bench_int8_mm.device_time(fn, [(x,) for x in xs], kernel=KERNEL_NAME)
+        assert k_dev is not None, (f"{layer.name}: the profiler lost records in every window "
+                                   f"(records, calls): {bench_int8_mm.lost_windows[-3:]}")
+        p_ms = None
+        if layer in INT8_LAYERS:
+            p_ms = cuda_ms(lambda x: int8_check.call(int8_ops.int8_conv_ref, x, w, layer), xs,
+                           iters=2, warmup=1)
+        bound, bound_by, ops = int8_bound(layer)
+        lib_name, library, lib_in = int8_layer_library(layer, w)
+        lxs = [lib_in(x) for x in xs]
+        lib_ms = cuda_ms(library, lxs)
+        lib_dev = bench_int8_mm.device_ms(library, [(x,) for x in lxs])
+        assert lib_dev is not None, (f"{layer.name} library: the profiler lost records in every "
+                                     f"window (records, calls): {bench_int8_mm.lost_windows[-3:]}")
+        p = int8_ops.plan(xs[0].shape, layer.cout, layer.k, layer.stride, layer.dilation,
+                          layer.pad)
+        log(f"int8 kernel {layer.name} bs={BS} ({layer.H}x{layer.H}, {layer.cin}->"
+            f"{layer.cout}, k={layer.k} s={layer.stride} d={layer.dilation}, "
+            f"emit={layer.emit}, {p.loader} loader, tile {p.bm}x{p.bn}, {p.ctas} a SM): "
+            f"device {k_dev:.4f} ms = {ops / k_dev / 1e9:.1f} TOP/s, {bound / k_dev:.2f} of its "
+            f"bound, events {k_ms:.4f} ms; bound {bound:.4f} ms by {bound_by}"
+            + ("" if p_ms is None else f", plain {p_ms:.3f} ms")
+            + f"; library device {lib_dev:.4f} ms, events {lib_ms:.4f} ms ({lib_name}); "
+            f"{lib_dev / k_dev:.2f}x the library's speed on the device")
+        rows[layer.name] = {"layer": layer.name, "k": layer.k, "loader": p.loader,
+                            "tile": f"{p.bm}x{p.bn}", "blocks_per_sm": p.ctas,
+                            "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+                            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+                            "library_device_ms": lib_dev, "kernel": bench_int8_mm.short_name(names)}
+        del xs, w, lxs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def int8_timing(dev, det, det8, launches, errs, layer_rows) -> list:
+    """Phase 13: bs=32 predict_batched and the post-stem walk in int8 beside
+    bf16, in turns; then the kernels line's rows from int8_layer_timing."""
     g = torch.Generator(device=dev).manual_seed(3)
     batches = [torch.randn(BS, 300, 300, 3, generator=g, device=dev) for _ in range(4)]
     e2e = {"int8": [], "bf16": []}
@@ -859,57 +907,24 @@ def int8_timing(dev, det, det8, launches, errs) -> list:
         + ", ".join(f"{t:.3f}" for t in walk["bf16"]) + " ms")
     del feats, batches
 
-    rows = {}
-    for layer in INT8_LAYERS:
-        name, H, cin, cout, k, stride, dilation, pad, emit = layer
-        xs, w = int8_layer_inputs(dev, layer, n_batches=4, seed=7)
-        k_ms = cuda_ms(lambda x: int8_layer_call(int8_ops.int8_conv, x, w, layer), xs)
-        p_ms = cuda_ms(lambda x: int8_layer_call(int8_ops.int8_conv_ref, x, w, layer), xs,
-                       iters=2, warmup=1)
-        bound, bound_by, ops = int8_bound(layer)
-        kq, ws, bias, ns = w
-        if k == 1:
-            wt = kq.reshape(cout, cin).t().contiguous()  # [K,N] for torch._int_mm
-            inv = torch.reciprocal(ns)
-
-            def library(x):
-                y = torch.relu(torch._int_mm(x.reshape(-1, cin), wt).float() * ws + bias)
-                return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8), \
-                    y.to(torch.bfloat16)
-
-            lib_name = "torch._int_mm + elementwise epilogue"
-            lib_ms = cuda_ms(library, xs)
-        else:
-            wb = kq.to(torch.bfloat16)
-            bb = bias.to(torch.bfloat16)
-            xb = [x.to(torch.bfloat16).permute(0, 3, 1, 2) for x in xs]  # channels-last
-            lib_name = "cuDNN bf16 conv + bias of the same layer (no int8 conv call in PyTorch)"
-            lib_ms = cuda_ms(lambda x: F.conv2d(x, wb, bb, stride, pad, dilation), xb)
-            del xb
-        log(f"int8 kernel {name} bs={BS} ({H}x{H}, {cin}->{cout}, k={k} s={stride} "
-            f"d={dilation}, emit={emit}): {k_ms:.4f} ms = {ops / k_ms / 1e9:.1f} TOP/s, "
-            f"bound {bound:.4f} ms by {bound_by}, plain {p_ms:.3f} ms, library {lib_ms:.4f} ms "
-            f"({lib_name})")
-        rows[name] = {"layer": name, "k": k, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "library_ms": lib_ms, "tops": ops / k_ms / 1e9}
-        del xs, w
-        torch.cuda.empty_cache()
-
-    def row(name, kernel, replaces, layer, key, count):
-        r = rows[layer]
+    def row(name, replaces, layer, key, count):
+        r = layer_rows[layer]
+        layers = [v for v in layer_rows.values() if (v["k"] == 1) == (key == "mm")]
         return {"name": name, "route": "cuda", "source": "ssdx_torch/csrc/int8_conv.cu",
                 "replaces": replaces, "launches": count,
                 "max_abs_err": errs[key]["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "shape": f"{layer} at bs={BS}", "kernel": kernel,
-                "layers": [v for v in rows.values() if (v["k"] == 1) == (key == "mm")]}
+                "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"],
+                "shape": f"{layer} at bs={BS}", "kernel": r["kernel"],
+                "device_ms_all_layers": sum(v["device_ms"] for v in layers),
+                "layers": layers}
 
     return [
-        row("int8_conv (3x3)", "igemm_kernel<3>",
-            "ssdx/ops/pallas_int8_conv.py:104", "ConvBNRelu_9", "conv3", launches["int8_conv3"]),
-        row("int8_conv (1x1)", "igemm_kernel<1>",
-            "ssdx/ops/pallas_int8_conv.py:135", "ConvBNRelu_14", "mm", launches["int8_mm"]),
+        row("int8_conv (3x3)", "ssdx/ops/pallas_int8_conv.py:104", "ConvBNRelu_9", "conv3",
+            launches["int8_conv3"]),
+        row("int8_conv (1x1)", "ssdx/ops/pallas_int8_conv.py:135", "ConvBNRelu_14", "mm",
+            launches["int8_mm"]),
     ]
 
 
@@ -1660,9 +1675,10 @@ def main() -> int:
     check_int8_walk(det8)
     probe_row = int8_probe()
     repro_times = repro_timing(dev)
+    layer_rows = int8_layer_timing(dev)
     launches8 = int8_path(det, det8)
     serve(det8)
-    kernels += int8_timing(dev, det, det8, launches8, errs)
+    kernels += int8_timing(dev, det, det8, launches8, errs, layer_rows)
     kernels.append(probe_row)
     del det8
     torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``ssdx_torch/_build/lib<name>-<hash>.so``
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the headers ``csrc/*.cuh`` and the flags, so
+an edited source or header rebuilds).
 No PyTorch headers are involved, which keeps a build to seconds.  Build
 errors propagate as ``RuntimeError`` with nvcc's output.
 
@@ -52,9 +53,13 @@ def _flags(name: str) -> list[str]:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    """The library's path: the hash covers the source, every header of
+    ``csrc`` (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, Path]:

@@ -29,19 +29,20 @@ _fns = None
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_nt(M: int, N: int, sms: int = 132) -> tuple[int, int]:
-    """Block tile (BM, BN) of the nt kernels for an ``[M,N]`` output on
-    ``sms`` SMs.
+def plan_nt(M: int, N: int, sms: int = 132, tiles=TILES) -> tuple[int, int]:
+    """Block tile (BM, BN), of ``tiles``, for an ``[M,N]`` output on ``sms``
+    SMs (the nt kernels are built for ``TILES``, the int8 conv kernel of
+    ``int8_conv.py`` for ``int8_conv.CONV_TILES`` one block an SM).
 
     One block runs per SM, so the time goes as the number of waves times
     the time of one tile, taken here as BM * (BN + 64): its products plus a
     fixed cost of about 64 columns (the A tile's loads, the pipeline's fill,
-    the epilogue).  The first of the cheapest in ``TILES`` wins: 2048^2
+    the epilogue).  The first of the cheapest in ``tiles`` wins: 2048^2
     takes 128 x 256 (128 tiles, one wave on 132 SMs), 1024^2 64 x 128."""
     best = None
-    for bm, bn in TILES:
-        tiles = -(-M // bm) * -(-N // bn)
-        cost = -(-tiles // sms) * bm * (bn + 64)
+    for bm, bn in tiles:
+        n = -(-M // bm) * -(-N // bn)
+        cost = -(-n // sms) * bm * (bn + 64)
         if best is None or cost < best[0]:
             best = (cost, (bm, bn))
     return best[1]

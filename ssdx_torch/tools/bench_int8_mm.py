@@ -71,13 +71,23 @@ def counted(names, iters, kernel=None):
     return names if counts and all(c % iters == 0 for c in counts.values()) else None
 
 
+# Idle seconds at each end of a profiler window.  The profiler keeps only
+# device records that it places inside the window's host-clock interval; a
+# window whose kernels run from its first to its last instant can lose its
+# edge records (or, if short, all of them) to any error in placing device
+# times on the host clock.
+WINDOW_PAD_S = 0.025
+lost_windows = []  # (records counted, calls) of each window that lost records
+
+
 def device_time(fn, inputs, iters=20, tries=3, kernel=None) -> tuple[float | None, list]:
     """Device time per call of fn(*x) under ``torch.profiler`` over
     ``iters`` calls, and the distinct names of the kernels it counted
-    (:func:`counted`).  A window that has lost records (on the card it
-    happens, in some runs in every window, to the repro tool's ``ew``
-    kernel) is run again, at most ``tries`` times in all; then the time is
-    None: not measured."""
+    (:func:`counted`).  The calls run ``WINDOW_PAD_S`` from either end of
+    the window.  A window that has lost records (on the card it happens, in
+    some runs, to whole windows; each loss is kept in ``lost_windows``) is
+    run again, at most ``tries`` times in all; then the time is None: not
+    measured."""
     from torch.profiler import ProfilerActivity, profile
 
     for x in inputs[:2]:
@@ -85,14 +95,17 @@ def device_time(fn, inputs, iters=20, tries=3, kernel=None) -> tuple[float | Non
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
             for i in range(iters):
                 fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         names = counted([e.name for e in events], iters, kernel)
         if names is not None:
             us = sum(e.time_range.elapsed_us() for e in events if kernel is None or kernel in e.name)
             return us / iters / 1e3, sorted(set(names))
+        lost_windows.append((sum(kernel is None or kernel in e.name for e in events), iters))
     return None, []
 
 

@@ -35,7 +35,7 @@ def group(name: str) -> str:
         return "stem kernel (csrc/stem.cu)"
     if "nms_" in n:
         return "nms kernel (csrc/nms.cu)"
-    if "igemm_kernel" in n:
+    if "::conv_kernel<" in n:  # before the cuDNN test: "conv" is in its name
         return "int8 conv kernels (csrc/int8_conv.cu)"
     if any(k in n for k in ("conv", "xmma", "cudnn", "implicit", "gemm", "sm90", "wgrad", "dgrad")):
         return "convolutions (cuDNN)"

@@ -6,6 +6,8 @@ classes), one ``save_params`` file written by the port from
 the CPU.  mAP@0.5 and the per-class APs within 1e-4, the test loss within
 1e-4 relative: the two run the same network on the same pixels with convs
 summed in another order.  The command line prints the JAX package's line.
+The JAX package's C++ matcher is a private build of this module
+(``torch_parity.jax_native_private``).
 """
 import re
 
@@ -17,6 +19,7 @@ from ssdx.eval.run import evaluate_weights as jax_evaluate_weights
 from ssdx_torch.eval import run as eval_run
 from ssdx_torch.model import init_variables
 from ssdx_torch.train.checkpoint import save_params
+from torch_parity import jax_native_private  # noqa: F401 (autouse fixture)
 
 KW = dict(batch_size=8, bfloat16=False, num_workers=2, source_size=64, max_boxes=4,
           width_mult=0.25)

@@ -18,9 +18,9 @@ S2b: ``repro.mm``) on the CPU, and what of their CUDA kernel
   kernel whatever the shape.
 * The profiler window's counting rule of ``tools/bench_int8_mm.py``
   (``counted``): a window that lost records gives no time.
-* The source itself: TMA and wgmma, no mma.sync, WMMA or per-thread
-  cp.async; the old raw modes and WMMA tile gone from ``int8_conv.cu`` and
-  ``repro.cu``.
+* The source itself, with the header it includes (``csrc/sm90.cuh``): TMA
+  and wgmma, no mma.sync, WMMA or per-thread cp.async; the old raw modes and
+  WMMA tile gone from ``int8_conv.cu`` and ``repro.cu``.
 The kernels run on the card in ``python -m ssdx_torch.tools.check_gemm`` and
 ``chip_smoke.py`` phases 11 and 18.
 """
@@ -277,8 +277,12 @@ def test_short_name_drops_return_type_namespace_and_parameters():
 
 
 def _src(name):
+    """The source with the csrc headers it includes (the main loop is
+    csrc/sm90.cuh's), code only, comments out."""
     text = (CSRC / name).read_text()
-    return re.sub(r"//[^\n]*", "", text)  # code only, comments out
+    for header in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += (CSRC / header).read_text()
+    return re.sub(r"//[^\n]*", "", text)
 
 
 @pytest.mark.parametrize("needle", ["cp.async.bulk.tensor.2d", "wgmma.mma_async",

@@ -2,8 +2,9 @@
 
 * ``MeanAP``: the port's numpy copy against ``ssdx.eval.map.MeanAP`` on the
   same seeded detections: every key equal within 1e-6 (both are float64
-  numpy; the JAX package matches through its C++ kernel, the port through
-  the numpy loop).
+  numpy; the JAX package matches through its C++ kernel, a private build of
+  this module (``torch_parity.jax_native_private``), the port through the
+  numpy loop).
 * ``merge_results`` on the cases of tests/test_e2e_train.py.
 * ``fit`` -> ``last.ckpt`` -> ``load_checkpoint`` -> resume, on in-memory
   batches, as tests/test_e2e_train.py does with the JAX loop.
@@ -24,7 +25,7 @@ from ssdx_torch.train.loop import fit, merge_results
 from ssdx_torch.train.schedule import build_optimizer
 from ssdx_torch.train.step import Batch, create_train_state, make_eval_step, make_train_step
 from ssdx_torch.weights import variables_from_torch
-from torch_parity import flatten
+from torch_parity import flatten, jax_native_private  # noqa: F401 (autouse fixture)
 
 PRI = P.create_priors()
 PRI_XYXY = P.priors_xyxy(PRI)

@@ -5,7 +5,13 @@ and the numpy oracles, as tests/test_native.py holds the JAX package's.
 Both libraries compile the same loops with the same flags, so every flag and
 every kept index is compared exactly.  ``MeanAP`` with the C++ matcher
 against without: mAP equal to float tolerance (np.isclose defaults).
+
+The JAX package's library is a private build of this module
+(``torch_parity.jax_native_private``), never the one the package builds
+into its source tree, which other test workers may be writing.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -13,6 +19,7 @@ from ssdx.ops import native as jax_native
 from ssdx_torch.eval import map as mapmod
 from ssdx_torch.eval.map import MeanAP, _match_with_ignore
 from ssdx_torch.ops import _build, native
+from torch_parity import jax_native_private, private_jax_native  # noqa: F401 (autouse fixture)
 
 
 def _rand_boxes(rng, n, lo=0, hi=250, smin=10, smax=60):
@@ -26,6 +33,28 @@ def test_built_outside_the_source_tree():
     lib = _build.build_host("ssdx_native")
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert not list(_build.CSRC.glob("*.so"))
+
+
+def test_jax_matcher_survives_a_lost_build_race(tmp_path, monkeypatch):
+    """A worker that lost the race for the in-tree build is left with
+    ``_tried = True, _lib = None`` for its session; the private build still
+    gives this module the real reference library."""
+    in_tree = Path(jax_native.__file__).parent
+    assert jax_native._LIB.parent != in_tree  # the module's private build is in force
+    monkeypatch.setattr(jax_native, "_tried", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert not jax_native.available()
+    rng = np.random.default_rng(11)
+    gt = _rand_boxes(rng, 5)
+    det = np.concatenate([gt + rng.normal(0, 3, gt.shape).astype(np.float32),
+                          _rand_boxes(rng, 4)])
+    with private_jax_native(tmp_path) as mod:
+        assert mod is jax_native and mod.available()
+        assert mod._LIB.parent == tmp_path and mod._lib is not None
+        got = mod.match_detections(det, gt, 0.5)
+        np.testing.assert_array_equal(got, native.match_detections(det, gt, 0.5))
+        assert got.sum() > 0
+    assert jax_native._tried and jax_native._lib is None  # the failed state is back
 
 
 @pytest.mark.parametrize("seed", range(4))
