@@ -7,8 +7,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. print the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from ssdx_torch/csrc with nvcc (sm_90a), in
      parallel, and print ptxas's register and spill lines;
-  3. the stem kernel (csrc/stem.cu) against its plain PyTorch version at
-     bs=32, 300x300, bf16: max |k - r| / (|r| + 1) < 0.05;
+  3. the stem kernel (csrc/stem.cu, on the wgmma core of csrc/stem_sm90.cuh)
+     against its plain PyTorch version at B = 1, 3, 5, 8 and 32, 300x300,
+     bf16 (tools/check_stem.py): max |k - r| / (|r| + 1) < 0.05, and every
+     image bit-identical at every B;
   4. the NMS kernel (csrc/nms.cu) against its plain version at K=400 and
      K=1600, class-aware and agnostic, thresholds 0.3 and 0.5: keep masks
      equal bit for bit;
@@ -20,12 +22,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. serving: the HTTP app answers POST /predict with a PNG for each scene;
   7. timing with CUDA events after warm-up, on distinct inputs: bs=32
      predict_batched images/s, and each kernel beside its plain version,
-     its library yardstick and its bound;
-  8. the train-mode stem kernel (csrc/stem_train.cu) against its plain
-     version, forward and backward at bs=16 in bf16: p within
-     max |k - r| / (|r| + 1) < 0.05, each batch statistic within 1e-3 of its
-     largest magnitude, each of dw1, dg1, dbe1, dw2, dg2, dbe2 within 0.05
-     L2-relative, and dx, db1, db2 exactly 0;
+     its library yardstick and its bound; the stem kernel also by profiler
+     device time;
+  8. the train-mode stem kernels (csrc/stem_train.cu) against their plain
+     version, forward and backward at bs=2 and bs=16 in bf16
+     (tools/check_stem.py): p within max |k - r| / (|r| + 1) < 0.05, each
+     batch statistic within 1e-3 of its largest magnitude, each of dw1, dg1,
+     dbe1, dw2, dg2, dbe2 within 0.05 L2-relative, and dx, db1, db2 exactly
+     0; and two runs at bs=16 identical bit for bit;
   9. the training path: full-width SSD300 in bf16 at bs=16 with 16 GT
      boxes per image, 5 train steps with the stem kernel against 5 with
      fused_stem=False from the same variables (losses finite, within 2 %
@@ -35,7 +39,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      just before this path and read just after;
  10. timing: the bs=16 train step with and without the stem kernel, and
      the stem kernel's forward + backward beside its plain version, its
-     library yardstick (cuDNN) and its bound;
+     library yardstick (cuDNN) and its bound; and its device time by launch
+     (tools/profile_stem.py, traced right after phase 11, where the
+     profiler keeps its records), each launch beside its own bound;
  11. the int8 conv kernel (csrc/int8_conv.cu, TMA + wgmma) against its plain
      version, bit for bit (int8 output and bf16 tap), at full width and bs=32 on one
      layer of each geometry: ConvBNRelu_2 (150x150, 64->128), _9 (38x38,
@@ -162,6 +168,8 @@ from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
 from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.tools import check_gemm
+from ssdx_torch.tools import check_stem as stem_check
+from ssdx_torch.tools import profile_stem
 from ssdx_torch.tools import check_int8_conv as int8_check
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
@@ -212,18 +220,8 @@ def stem_inputs(dev, n_batches=4, seed=0):
 
 
 def check_stem(dev) -> dict:
-    xs, w = stem_inputs(dev)
-    got = stem_ops.stem_conv_pool(xs[0], *w)
-    ref = stem_ops.stem_conv_pool_ref(xs[0], *w)
-    torch.cuda.synchronize()
-    assert got.shape == ref.shape == (BS, 150, 150, 64) and got.dtype == torch.bfloat16
-    g, r = got.float(), ref.float()
-    rel = ((g - r).abs() / (r.abs() + 1.0)).max().item()
-    abs_err = (g - r).abs().max().item()
-    log(f"stem kernel vs plain (bs={BS}, bf16): max |k-r|/(|r|+1) = {rel:.3e} "
-        f"(limit 0.05), max |k-r| = {abs_err:.3e}")
-    assert torch.isfinite(g).all() and rel < 0.05, rel
-    return {"max_abs_err": abs_err}
+    res = stem_check.check_b2(dev, log=log)
+    return {"max_abs_err": res[BS][1]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -380,6 +378,8 @@ def timing(dev, det, launches, errs):
     # stem: kernel, plain version, and cuDNN's two convs + pool as yardstick
     xs, w = stem_inputs(dev, seed=2)
     stem_ms = cuda_ms(lambda x: stem_ops.stem_conv_pool(x, *w), xs)
+    stem_dev = bench_int8_mm.device_ms(lambda x: stem_ops.stem_conv_pool(x, *w),
+                                       [(x,) for x in xs], kernel="stem_kernel")
     plain_ms = cuda_ms(lambda x: stem_ops.stem_conv_pool_ref(x, *w), xs)
     bf = torch.bfloat16
     w1, b1, w2, b2 = (t.to(bf) for t in w)
@@ -390,7 +390,9 @@ def timing(dev, det, launches, errs):
     ops = 2 * BS * 300 * 300 * 64 * (27 + 576)
     nbytes = BS * 300 * 300 * 3 * 2 + BS * 150 * 150 * 64 * 2 + (64 * 27 + 64 * 576) * 2 + 128 * 4
     bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-    log(f"stem kernel bs={BS}: {stem_ms:.4f} ms, library (cuDNN conv+conv+pool, bf16) "
+    log(f"stem kernel bs={BS}: {stem_ms:.4f} ms by events, "
+        f"{bench_int8_mm.fmt(stem_dev, '.4f')} ms on the device (profiler), "
+        f"library (cuDNN conv+conv+pool, bf16) "
         f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
         f"({ops / 1e9:.1f} GFLOP bf16), 1 launch per forward")
     kernels = [{
@@ -432,7 +434,6 @@ def timing(dev, det, launches, errs):
 # ---------------------------------------------------------------- phase 8
 
 TRAIN_BS = 16
-STEM_GRAD_NAMES = ("dx", "dw1", "db1", "dg1", "dbe1", "dw2", "db2", "dg2", "dbe2")
 
 
 def stem_train_inputs(dev, n_batches=4, seed=0):
@@ -447,40 +448,10 @@ def stem_train_inputs(dev, n_batches=4, seed=0):
     return xs, dps, w
 
 
-def stem_train_fwd_bwd(fn, x, dp, w):
-    """One forward and backward of fn; returns (outputs, grads of x and w)."""
-    ps = [t.detach().clone().requires_grad_() for t in w]
-    xx = x.detach().clone().requires_grad_()
-    out = fn(xx, *ps)
-    torch.autograd.backward(out[0], dp)
-    return [o.detach() for o in out], [xx.grad] + [p.grad for p in ps]
-
-
 def check_stem_train(dev) -> dict:
-    xs, dps, w = stem_train_inputs(dev)
-    kout, kgrad = stem_train_fwd_bwd(stem_train_ops.stem_train, xs[0], dps[0], w)
-    rout, rgrad = stem_train_fwd_bwd(stem_train_ops.stem_train_ref, xs[0], dps[0], w)
-    torch.cuda.synchronize()
-    kp, rp = kout[0].float(), rout[0].float()
-    assert kp.shape == rp.shape == (TRAIN_BS, 150, 150, 64) and kout[0].dtype == torch.bfloat16
-    rel = ((kp - rp).abs() / (rp.abs() + 1.0)).max().item()
-    abs_err = (kp - rp).abs().max().item()
-    log(f"stem_train kernel vs plain (bs={TRAIN_BS}, bf16): p max |k-r|/(|r|+1) = {rel:.3e} "
-        f"(limit 0.05), max |k-r| = {abs_err:.3e}")
-    assert torch.isfinite(kp).all() and rel < 0.05, rel
-    for name, k, r in zip(("mean1", "var1", "mean2", "var2"), kout[1:], rout[1:]):
-        e = ((k - r).abs().max() / r.abs().max()).item()
-        log(f"  {name}: max |k-r| / max |r| = {e:.3e} (limit 1e-3)")
-        assert e < 1e-3, (name, e)
-    for name, k, r in zip(STEM_GRAD_NAMES, kgrad, rgrad):
-        if name in ("dx", "db1", "db2"):
-            log(f"  {name}: max |k| = {k.abs().max().item()} (must be exactly 0)")
-            assert k.abs().max().item() == 0.0, name
-            continue
-        e = ((k - r).norm() / r.norm()).item()
-        log(f"  {name}: |k-r|/|r| = {e:.3e} (limit 0.05)")
-        assert torch.isfinite(k).all() and e < 0.05, (name, e)
-    return {"max_abs_err": abs_err}
+    errs = {B: stem_check.check_b3(dev, B, log=log) for B in stem_check.B3_BATCHES}
+    stem_check.check_b3_repeat(dev, TRAIN_BS, log=log)
+    return {"max_abs_err": errs[TRAIN_BS]["max_abs_err"]}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -595,7 +566,7 @@ def stem_train_bound(B):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), ops, nbytes
 
 
-def train_timing(dev, launches, err) -> dict:
+def train_timing(dev, launches, err, split_lines) -> dict:
     batches = [train_batch(dev, 10 + i) for i in range(4)]
     step_ms = {}
     for label, fused in (("kernel", True), ("plain", False), ("plain", False),
@@ -649,6 +620,8 @@ def train_timing(dev, launches, err) -> dict:
         f"x2 + pool, fwd+bwd, bf16) {lib_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
         f"by {bound_by} ({ops / 1e9:.1f} GFLOP bf16, {nbytes / 1e6:.1f} MB), "
         f"1 launch counted per forward")
+    for line in split_lines:  # traced right after phase 11
+        log(line)
     return {
         "name": "stem_train", "route": "cuda", "source": "ssdx_torch/csrc/stem_train.cu",
         "replaces": "ssdx/ops/pallas_stem_train.py:718", "launches": launches["stem_train"],
@@ -1676,6 +1649,8 @@ def main() -> int:
     probe_row = int8_probe()
     repro_times = repro_timing(dev)
     layer_rows = int8_layer_timing(dev)
+    b3_split = []  # phase 10's split of the stem_train launches, printed there
+    profile_stem.b3_split(TRAIN_BS, log=b3_split.append)
     launches8 = int8_path(det, det8)
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs, layer_rows)
@@ -1684,7 +1659,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     errs["stem_train"] = check_stem_train(dev)
     train = train_path(dev)
-    kernels.append(train_timing(dev, train["launches"], errs["stem_train"]))
+    kernels.append(train_timing(dev, train["launches"], errs["stem_train"], b3_split))
     errs["pool"], errs["brp"] = check_pool(dev), check_brp(dev)
     tool = tool_path()
     kernels += pool_brp_timing(dev, tool["launches"], errs)

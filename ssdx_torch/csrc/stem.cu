@@ -4,215 +4,277 @@
 // Replaces: ssdx/ops/pallas_stem.py, stem_conv_pool (TPU kernel _stem_kernel
 // with the host helpers build_stem_patches and pack_stem_weights).
 //
-// Contract: x [B,300,300,3] bf16 NHWC; w1 [27][64] f32 (HWIO conv1_1
-// weights rounded to bf16, row (dr*3+dc)*3+ci), b1 [64] f32 (rounded to
-// bf16); w2 [9][64][64] bf16 (HWIO conv1_2, [tap][ci][co]), b2 [64] f32.
-// out [B,150,150,64] bf16 = maxpool(relu(conv(y1, w2) + b2)) with
-// y1 = bf16(relu(conv(x, w1) + b1)); SAME padding, y1 outside the image is
-// 0.  Sums accumulate in f32; y1 is rounded to bf16 before conv1_2, as the
-// TPU kernel stores it in the compute dtype.
+// Contract: x [B,300,300,3] bf16 NHWC; w1 [64][32] bf16 (OIHW conv1_1
+// weights as [co][(dr*3 + dc)*3 + ci], columns 27..31 zero), b1 [64] f32
+// (rounded to bf16); w2 [64][576] bf16 (conv1_2 as [co][(dr*3 + dc)*64 +
+// ci]), b2 [64] f32.  out [B,150,150,64] bf16 = maxpool(relu(conv(y1, w2) +
+// b2)) with y1 = bf16(relu(conv(x, w1) + b1)); SAME padding, y1 outside the
+// image is 0.  Sums accumulate in f32; y1 is rounded to bf16 before conv1_2,
+// as the TPU kernel stores it in the compute dtype; the pool is taken before
+// the bias, which is exact (max is monotone and the bias uniform over the
+// window).
 //
 // Bound: 2*B*300^2*64*(27+576) operations, 6.95 GFLOP per image (222 GFLOP
-// at B = 32, 0.22 ms at the H100's 989 TFLOP/s dense bf16), against
-// 109 MB of input and output at B = 32 (0.03 ms at 3.35 TB/s): compute
-// bound.  What matters is that the 300x300x64 intermediates (y1 and the
-// conv1_2 output, 23 MB per image in bf16) never go to device memory.
+// at B = 32, 0.22 ms at the H100's 989 TFLOP/s dense bf16), against 109 MB
+// of input and output at B = 32 (0.03 ms at 3.35 TB/s): compute bound.  The
+// 300x300x64 intermediates (y1 and the conv1_2 output, 23 MB per image in
+// bf16) never go to device memory.
 //
-// Design: none of the TPU layout carries over (its 128-lane pair packing,
-// the pair stride 151 -> 160 and the -1e9 "kill" rows exist for the MXU).
-// One block of 8 warps computes one (image, 8x16 tile of pooled output):
-//   * it stages the 20x36x3 input window (f32), w1, b1 and all of w2 in
-//     shared memory;
-//   * conv1_1 (depth 27) runs as scalar f32 FMAs into an 18x34x64 bf16 y1
-//     tile in shared memory (zero outside the image);
-//   * conv1_2 is an implicit GEMM of depth 9*64 = 576 on the tensor cores
-//     (WMMA 16x16x16 bf16, f32 accumulate): warp w owns conv rows 2w and
-//     2w+1 of the 16x32 conv tile, as four 16-pixel M tiles by four
-//     16-channel N tiles; each tap's A operand is a strided view of the y1
-//     tile, so there is no im2col;
-//   * the epilogue stages two accumulator tiles at a time in shared memory,
-//     takes the 2x2 max of the raw sums, then adds b2 and applies ReLU
-//     (pool before bias is exact: max is monotone and the bias uniform over
-//     the window), and stores bf16.
-// Shared rows are padded from 64 to 80 channels (160 bytes) so that the 16
-// rows of a WMMA fragment spread over all banks.  About 217 KB of dynamic
-// shared memory: one block per SM.  A simple design, right first; a later
-// version can move to wgmma and TMA.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+// Design (stem_sm90.cuh has the shared conv core): a persistent grid of one
+// block per SM, two consumer warpgroups, walks the tiles of 4 conv rows by
+// 62 columns (2 x 31 pooled pixels) of every image, tile blockIdx.x,
+// + gridDim.x, ...  The weights go to shared memory once per block, in the
+// layout wgmma reads.  Per tile:
+//   * the input windows (8 x 66 x 3, zero outside the image) are copied
+//     with cp.async two tiles ahead (double-buffered), and the next tile's
+//     im2col is built while the tensor cores run this tile's conv1_2;
+//   * conv1_1 runs on the tensor cores: K = 27 padded to 32 (zero weights),
+//     an im2col of the window's 6 x 64 y1 halo pixels built in shared
+//     memory, pixels as M (3 m64n64k16 tiles of 2 k-steps per warpgroup);
+//     the epilogue adds b1, applies ReLU, rounds to bf16 (zero outside the
+//     image) and writes the y1 halo tile in the core's layout;
+//   * conv1_2 is the core (36 wgmma m64n128k16 per warpgroup);
+//   * the 2x2 pool is a max inside each thread's fragment (adjacent columns
+//     and the row at +64 sit in the same thread), then + b2, ReLU, bf16;
+//     the pooled row goes through shared memory so that each 31-pixel run
+//     of NHWC output is written with 16-byte stores.
+// An image's output is computed by one tile independently of B and of the
+// block that takes it: no reduction crosses blocks.
+#include "stem_sm90.cuh"
 
 namespace {
 
-constexpr int kH = 300, kW = 300, kC = 64;
-constexpr int kPH = kH / 2, kPW = kW / 2;
-constexpr int kTPH = 8, kTPW = 16;                // pooled tile
-constexpr int kTH = 2 * kTPH, kTW = 2 * kTPW;     // conv tile 16x32
-constexpr int kYH = kTH + 2, kYW = kTW + 2;       // y1 tile 18x34
-constexpr int kXH = kYH + 2, kXW = kYW + 2;       // input tile 20x36
-constexpr int kLd = 80;                           // padded channel stride (bf16)
+using namespace stem90;
+
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;             // = kTH / 2
+constexpr int kXRows = HR + 2;                // 8 input rows
+constexpr int kXCols = HW + 2;                // 66 input columns
+constexpr int kXWords = kXCols * 3 / 2;       // 99 four-byte words a row
+constexpr int kXLd = 400;                     // bytes per staged input row
+constexpr int kXBytes = kXRows * kXLd;        // 3,200
+constexpr int kImLd = HALO_PIX;               // im2col pixels between its 4 k-chunks
+constexpr int kPooled = TW / 2;               // 31 pooled columns a tile
+constexpr int kPStage = 32 * STAGE_LD;        // pooled staging per warpgroup
 
-constexpr size_t kW2Bytes = 9 * kC * kLd * 2;           // 92160
-constexpr size_t kY1Bytes = kYH * kYW * kLd * 2;        // 97920
-constexpr size_t kXBytes = kXH * kXW * 3 * 4;           // 8640
-constexpr size_t kW1Bytes = 27 * kC * 4;                // 6912
-constexpr size_t kB1Bytes = kC * 4;                     // 256
-constexpr size_t kStageBytes = kWarps * 2 * 256 * 4;    // 16384
-constexpr size_t kOffY1 = kW2Bytes;
-constexpr size_t kOffX = kOffY1 + kY1Bytes;
-constexpr size_t kOffW1 = kOffX + kXBytes;
-constexpr size_t kOffB1 = kOffW1 + kW1Bytes;
-constexpr size_t kOffStage = kOffB1 + kB1Bytes;
-constexpr size_t kSmem = kOffStage + kStageBytes;       // 222272
-static_assert(kOffY1 % 32 == 0 && kOffStage % 32 == 0, "WMMA needs 32-byte alignment");
+constexpr int kOffW2 = 0;
+constexpr int kOffW1 = kOffW2 + W_BYTES;             // [4 chunks][64 co][16 B]
+constexpr int kOffHalo = kOffW1 + 4 * 64 * 16;
+constexpr int kOffIm = kOffHalo + HALO_BYTES;        // [4 chunks][384 px][16 B]
+constexpr int kOffX = kOffIm + 4 * kImLd * 16;
+constexpr int kOffStage = kOffX + 2 * kXBytes;
+constexpr int kOffBias = kOffStage + 2 * kPStage;
+constexpr int kSmem = kOffBias + 2 * C * 4 + 1024;   // + alignment
+static_assert(kOffHalo % 16 == 0 && kOffIm % 16 == 0 && kOffStage % 16 == 0, "alignment");
 
-__global__ void __launch_bounds__(kThreads, 1)
-stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w1,
-            const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-            const float* __restrict__ b2, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* y1s = reinterpret_cast<__nv_bfloat16*>(smem + kOffY1);
-  float* xs = reinterpret_cast<float*>(smem + kOffX);
-  float* w1s = reinterpret_cast<float*>(smem + kOffW1);
-  float* b1s = reinterpret_cast<float*>(smem + kOffB1);
-  float* stage = reinterpret_cast<float*>(smem + kOffStage);
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int P0 = blockIdx.y * kTPH, Q0 = blockIdx.x * kTPW;  // pooled origin
-  const int R0 = 2 * P0, C0 = 2 * Q0;                        // conv origin
-
-  // ---- stage weights and the input window in shared memory ----
-  {
-    const int4* src = reinterpret_cast<const int4*>(w2);     // 8 int4 per 64-ch row
-    for (int v = tid; v < 9 * kC * 8; v += kThreads) {
-      const int row = v >> 3, part = v & 7;
-      reinterpret_cast<int4*>(w2s + row * kLd)[part] = src[v];
-    }
-    for (int v = tid; v < 27 * kC; v += kThreads) w1s[v] = w1[v];
-    if (tid < kC) b1s[tid] = b1[tid];
-    const __nv_bfloat16* xb = x + (size_t)b * kH * kW * 3;
-    for (int v = tid; v < kXH * kXW * 3; v += kThreads) {
-      const int ci = v % 3, col = (v / 3) % kXW, row = v / (3 * kXW);
-      const int gr = R0 - 2 + row, gc = C0 - 2 + col;
-      float val = 0.0f;
-      if (gr >= 0 && gr < kH && gc >= 0 && gc < kW)
-        val = __bfloat162float(xb[((size_t)gr * kW + gc) * 3 + ci]);
-      xs[v] = val;
-    }
+// Copy the input window of tile t (rows r0-2 .. r0+5, columns c0-2 .. c0+63,
+// 3 channels) to `xs` with 4-byte cp.async, zeros outside the image.  c0 is
+// even, so the image's edges fall on word boundaries.
+__device__ __forceinline__ void load_x(const __nv_bfloat16* __restrict__ x, int t,
+                                       unsigned char* xs) {
+  const Tile T = tile_of(t);
+  for (int v = threadIdx.x; v < kXRows * kXWords; v += kThreads) {
+    const int xr = v / kXWords, wi = v % kXWords;
+    const int gr = T.r0 - 2 + xr, col = T.c0 - 2 + (2 * wi) / 3;
+    const bool valid = gr >= 0 && gr < H && col >= 0 && col < W;
+    const long long e = (((long long)T.b * H + gr) * W + (T.c0 - 2)) * 3 + 2 * wi;
+    cp_async4(xs + xr * kXLd + wi * 4, valid ? x + e : x, valid);
   }
-  __syncthreads();
+}
 
-  // ---- conv1_1 + ReLU -> y1 tile (bf16), zero outside the image ----
-  // work item = (8-channel group, y1 pixel); a warp's lanes share the
-  // channel group, so the weight reads are broadcasts
-  for (int item = tid; item < 8 * kYH * kYW; item += kThreads) {
-    const int cg = item / (kYH * kYW), pix = item % (kYH * kYW);
-    const int yr = pix / kYW, yc = pix % kYW;
-    const int gr = R0 - 1 + yr, gc = C0 - 1 + yc;
-    __align__(16) __nv_bfloat16 vals[8];
-    if (gr >= 0 && gr < kH && gc >= 0 && gc < kW) {
-      float acc[8];
+// im2col of the 6 x 64 y1 halo pixels from the staged window: chunk c
+// (K = 8c .. 8c + 7 of K = (dr*3 + dc)*3 + ci, 27..31 zero) of pixel p at
+// (c * kImLd + p) * 16 bytes, for chunks C0 .. C1 - 1.
+template <int C0 = 0, int C1 = 4>
+__device__ __forceinline__ void build_im2col(const unsigned char* xcur, unsigned char* im) {
+  const __nv_bfloat16* xsb = reinterpret_cast<const __nv_bfloat16*>(xcur);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) acc[q] = b1s[cg * 8 + q];
+  for (int c = C0; c < C1; ++c) {
+    for (int p = threadIdx.x; p < HALO_PIX; p += kThreads) {
+      const int hr = p >> 6, hc = p & 63;
+      __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-      for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc)
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci) {
-            const float xv = xs[((yr + dr) * kXW + (yc + dc)) * 3 + ci];
-            const float* wr = w1s + ((dr * 3 + dc) * 3 + ci) * kC + cg * 8;
-#pragma unroll
-            for (int q = 0; q < 8; ++q) acc[q] = fmaf(xv, wr[q], acc[q]);
-          }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) vals[q] = __float2bfloat16(fmaxf(acc[q], 0.0f));
-    } else {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) vals[q] = __float2bfloat16(0.0f);
-    }
-    *reinterpret_cast<int4*>(y1s + pix * kLd + cg * 8) = *reinterpret_cast<const int4*>(vals);
-  }
-  __syncthreads();
-
-  // ---- conv1_2: implicit GEMM on the tensor cores ----
-  const int warp = tid >> 5, lane = tid & 31;
-  // M tile mt = 2*rr + hh: conv row 2*warp + rr, columns 16*hh .. 16*hh+15
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) wmma::fill_fragment(acc[mt][nn], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dr = tap / 3, dc = tap % 3;
-#pragma unroll
-    for (int kk = 0; kk < kC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[4];
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-        wmma::load_matrix_sync(bf[nn], w2s + (tap * kC + kk * 16) * kLd + nn * 16, kLd);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int yr = 2 * warp + (mt >> 1) + dr;   // y1 tile row
-        const int yc = 16 * (mt & 1) + dc;          // first y1 tile column
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, y1s + (yr * kYW + yc) * kLd + kk * 16, kLd);
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) wmma::mma_sync(acc[mt][nn], af, bf[nn], acc[mt][nn]);
+      for (int e = 0; e < 8; ++e) {
+        const int k = 8 * c + e;
+        v[e] = k < 27 ? xsb[(hr + k / 9) * (kXLd / 2) + (hc + (k / 3) % 3) * 3 + k % 3]
+                      : __float2bfloat16(0.0f);
       }
-    }
-  }
-
-  // ---- epilogue: 2x2 max of the raw sums, + b2, ReLU, bf16 store ----
-  float* st = stage + warp * 2 * 256;  // [2 conv rows][16 px][16 ch]
-  const int P = P0 + warp;             // this warp's pooled row
-  __nv_bfloat16* ob = out + (size_t)b * kPH * kPW * kC;
-#pragma unroll
-  for (int nn = 0; nn < 4; ++nn) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      wmma::store_matrix_sync(st, acc[hh][nn], 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(st + 256, acc[2 + hh][nn], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int idx = lane + 32 * q;          // 8 pooled columns x 16 channels
-        const int pc = idx >> 4, ch = idx & 15;
-        const int m0 = 2 * pc;
-        const float v = fmaxf(fmaxf(st[m0 * 16 + ch], st[(m0 + 1) * 16 + ch]),
-                              fmaxf(st[256 + m0 * 16 + ch], st[256 + (m0 + 1) * 16 + ch]));
-        const int Q = Q0 + 8 * hh + pc;
-        if (P < kPH && Q < kPW)
-          ob[((size_t)P * kPW + Q) * kC + nn * 16 + ch] =
-              __float2bfloat16(fmaxf(v + b2[nn * 16 + ch], 0.0f));
-      }
-      __syncwarp();
+      *reinterpret_cast<int4*>(im + (c * kImLd + p) * 16) = *reinterpret_cast<const int4*>(v);
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
+            const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
+            const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int B) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  unsigned char* w2s = smem + kOffW2;
+  unsigned char* w1s = smem + kOffW1;
+  unsigned char* halo = smem + kOffHalo;
+  unsigned char* im = smem + kOffIm;
+  unsigned char* xs = smem + kOffX;
+  float* b1s = reinterpret_cast<float*>(smem + kOffBias);
+  float* b2s = b1s + C;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* stage = smem + kOffStage + wg * kPStage;
+
+  stage_weights(w2, w2s);
+  {
+    const int4* src = reinterpret_cast<const int4*>(w1);  // [64][32] bf16: 4 chunks a row
+    for (int v = tid; v < C * 4; v += kThreads)
+      *reinterpret_cast<int4*>(w1s + (v & 3) * 1024 + (v >> 2) * 16) = src[v];
+  }
+  zero_halo_pad(halo);
+  if (tid < C) {
+    b1s[tid] = b1[tid];
+    b2s[tid] = b2[tid];
+  }
+  // Prologue: tile blockIdx.x's window and im2col, the next window in flight.
+  const int ntiles = B * TILES;
+  if ((int)blockIdx.x < ntiles) load_x(x, blockIdx.x, xs);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  build_im2col(xs, im);
+  if ((int)(blockIdx.x + gridDim.x) < ntiles) load_x(x, blockIdx.x + gridDim.x, xs + kXBytes);
+  cp_async_commit();
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  float b1r[16];  // b1 of this thread's columns of conv1_1's fragment: 8j + 2q, + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    b1r[2 * j] = b1s[8 * j + 2 * q];
+    b1r[2 * j + 1] = b1s[8 * j + 2 * q + 1];
+  }
+  const uint32_t w1a = sm90::smem_u32(w1s), w2a = sm90::smem_u32(w2s);
+  const uint32_t ha = sm90::smem_u32(halo), ima = sm90::smem_u32(im);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    // The im2col of this tile is in place; the window of the next is in
+    // flight in buffer (it + 1) & 1.
+    const Tile T = tile_of(tile);
+
+    // ---- conv1_1 on the tensor cores: pixels 192*wg .. +191 as M, co as N ----
+    {
+      float a1[3][32];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          a1[i][j] = 0.0f;
+          sm90::fence_operand(a1[i][j]);
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const uint64_t da = desc0(ima + (2 * s * kImLd + 64 * (3 * wg + i)) * 16, kImLd * 16, 128);
+          const uint64_t db = desc0(w1a + 2 * s * 1024, 1024, 128);
+          wgmma_64<0, 0>(a1[i], da, db);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sm90::fence_operand(a1[i][j]);
+
+      // + b1, ReLU, bf16, zero outside the image -> y1 halo: tile (pixels p0 ..
+      // p0 + 7, channels 8j .. 8j + 7) is chunk j of those pixels, stored
+      // four chunks at a time with stmatrix.
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p0 = 64 * (3 * wg + i) + 16 * warp + 8 * h;
+          const int p = p0 + (lane >> 2);  // this thread's pixel
+          const int gr = T.r0 - 1 + (p >> 6), gc = T.c0 - 1 + (p & 63);
+          const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
+#pragma unroll
+          for (int j0 = 0; j0 < 8; j0 += 4) {
+            uint32_t rr[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int j = j0 + m;
+              const float v0 = inside ? fmaxf(a1[i][4 * j + 2 * h] + b1r[2 * j], 0.0f) : 0.0f;
+              const float v1 = inside ? fmaxf(a1[i][4 * j + 2 * h + 1] + b1r[2 * j + 1], 0.0f) : 0.0f;
+              rr[m] = pack_bf16x2(v0, v1);
+            }
+            stmatrix_x4(halo + ((j0 + (lane >> 3)) * HALO_LD + p0 + (lane & 7)) * 16, rr);
+          }
+        }
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();
+
+    // ---- conv1_2: the core ----
+    // The next tile's im2col between groups of taps, while the tensor cores run.
+    float acc[64];
+    const int next = tile + gridDim.x;
+    const unsigned char* xn = xs + ((it + 1) & 1) * kXBytes;
+    conv_begin(acc);
+    conv_taps<0, 3>(acc, w2a, ha, wg);
+    if (next < ntiles) {
+      cp_async_wait_all();
+      __syncthreads();  // its window is in (every thread's copies)
+      build_im2col<0, 2>(xn, im);
+    }
+    conv_taps<3, 6>(acc, w2a, ha, wg);
+    if (next < ntiles) {
+      build_im2col<2, 4>(xn, im);
+      if (next + (int)gridDim.x < ntiles) load_x(x, next + gridDim.x, xs + (it & 1) * kXBytes);
+      cp_async_commit();
+      sm90::fence_proxy_async();
+    }
+    conv_taps<6, 9>(acc, w2a, ha, wg);
+    conv_end(acc);
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sm90::fence_operand(acc[i]);
+
+    // ---- 2x2 max of the raw sums, + b2, ReLU, bf16 -> staging -> NHWC ----
+    const int co0 = 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int pc = 4 * j + q;
+      const float v0 = fmaxf(fmaxf(acc[4 * j], acc[4 * j + 1]), fmaxf(acc[4 * j + 32], acc[4 * j + 33]));
+      const float v1 = fmaxf(fmaxf(acc[4 * j + 2], acc[4 * j + 3]), fmaxf(acc[4 * j + 34], acc[4 * j + 35]));
+      __nv_bfloat16* row = reinterpret_cast<__nv_bfloat16*>(stage + pc * STAGE_LD);
+      row[co0] = __float2bfloat16(fmaxf(v0 + b2s[co0], 0.0f));
+      row[co0 + 8] = __float2bfloat16(fmaxf(v1 + b2s[co0 + 8], 0.0f));
+    }
+    sm90::named_barrier(1 + wg, 128);
+    const int P = T.r0 / 2 + wg, Q0 = T.c0 / 2;
+    __nv_bfloat16* orow = out + (((size_t)T.b * (H / 2) + P) * (W / 2)) * C;
+    for (int v = t; v < kPooled * 8; v += 128) {
+      const int pc = v >> 3, c = v & 7;
+      if (Q0 + pc < W / 2)
+        *reinterpret_cast<int4*>(orow + (size_t)(Q0 + pc) * C + c * 8) =
+            *reinterpret_cast<const int4*>(stage + pc * STAGE_LD + c * 16);
+    }
+    __syncthreads();  // the next im2col is written; this tile's wgmmas and stores are done
+  }
+  cp_async_wait_all();
+}
+
 }  // namespace
 
-// Launch the stem on `stream`; returns cudaGetLastError() after the launch.
-extern "C" int ssdx_stem_forward(const void* x, const float* w1, const float* b1,
-                                 const void* w2, const float* b2, void* out, int B,
+// Launch the stem on `stream` over `grid` persistent blocks; returns
+// cudaGetLastError() after the launch.
+extern "C" int ssdx_stem_forward(const void* x, const void* w1, const float* b1, const void* w2,
+                                 const float* b2, void* out, int B, int grid,
                                  cudaStream_t stream) {
   if (B <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kSmem);
+                                       kSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((kPW + kTPW - 1) / kTPW, (kPH + kTPH - 1) / kTPH, B);
   stem_kernel<<<grid, kThreads, kSmem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), w1, b1,
-      reinterpret_cast<const __nv_bfloat16*>(w2), b2,
-      reinterpret_cast<__nv_bfloat16*>(out));
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(w1), b1,
+      reinterpret_cast<const __nv_bfloat16*>(w2), b2, reinterpret_cast<__nv_bfloat16*>(out), B);
   return (int)cudaGetLastError();
 }

@@ -14,18 +14,20 @@
 // them -- sums -> mean, var, inv and the affine vectors -- is PyTorch):
 //   forward   conv1_stats  y1 = bf16(conv1_1(x) + b1), per-block sum/sumsq
 //             stage2<0>    y1n = bf16(relu(y1*a1 + c1)) on a haloed tile in
-//                          shared memory, conv1_2 as a WMMA implicit GEMM,
-//                          y2 = bf16(acc + b2), per-block sum/sumsq
+//                          shared memory (written out for dw2), conv1_2 on
+//                          the wgmma core of stem_sm90.cuh, y2 = bf16(acc +
+//                          b2), per-block sum/sumsq of the rounded y2
 //             pool         p = bf16(maxpool(relu(y2*a2 + c2)))
 //   backward  route        pool routing recomputed from y2: only positive
 //                          maxima take gradient, tied maxima split it evenly;
 //                          dt2 in bf16, BN2 sums taken before rounding
 //             stage2<1>    dy2 = bf16(BN2 backward) on a haloed tile,
-//                          conv1_2^T (flipped, transposed w2) as the same
-//                          implicit GEMM, dt1 = dy1n*[t1 > 0] in bf16, BN1
-//                          sums before rounding
-//             dw2          dW2 = sum over pixels of y1n^T dy2: WMMA, split-K
-//                          over one slice of tiles per block
+//                          written out for dw2, conv1_2^T (flipped,
+//                          transposed w2) on the same core, dt1 =
+//                          dy1n*[t1 > 0] in bf16, BN1 sums before rounding
+//             dw2          dW2 = sum over pixels of y1n^T dy2: wgmma with
+//                          M = (tap, ci), N = co, K = pixels, split over
+//                          one slice of tiles per block
 //             dw1          dy1 = bf16(BN1 backward); dW1 = patches^T dy1 in
 //                          f32 FMAs, one slice of rows per block
 //             colsum       every cross-block reduction: per-block partial
@@ -35,54 +37,55 @@
 // Bound at B = 16: 2*B*300^2*64*(27 + 576 + 576 + 576 + 27) operations =
 // 328 GFLOP, 0.33 ms at 989 TFLOP/s dense bf16, against 101 MB of inputs
 // and outputs (image, dp, p, weights, gradients; 0.03 ms at 3.35 TB/s):
-// bound by operations.  This design also moves y1 and y2 (184 MB each)
-// through device memory across the BN barriers, written once and read two
-// or three times, about 1.2 GB (0.36 ms).  This first version is simple:
-// WMMA on mma.sync with one block per SM for the 3x3x64 convolutions, f32
-// FMAs for the 3-channel conv1_1 and its weight gradient; wgmma and TMA
-// are later work.
+// bound by operations.  This design also moves y1, y2, dt2, dt1 and the
+// dw2 operands y1n and dy2 (184 MB each) through device memory across the
+// BN barriers, each written once and read once to three times, about 2 GB
+// (0.6 ms).
+//
+// The three 64 -> 64 contractions (stage2<0>, stage2<1>, dw2) run on
+// wgmma: persistent blocks of one per SM walk the core's tiles of 4 conv
+// rows x 62 columns (stem_sm90.cuh), the weights staged once per block; in
+// stage2 each thread fetches the next tile's halo into registers while the
+// tensor cores work on this one, between groups of taps, and stage2<1>
+// copies the y1 it needs for the ReLU mask into shared memory with
+// cp.async in the same window; both write their operand on the tile's own
+// pixels (y1n, dy2), which dw2 copies instead of recomputing.  The
+// per-block statistics are summed per thread over the block's tiles, then
+// over lanes and warpgroups in a fixed order, and by colsum across blocks.
+// The 3-channel conv1_1 and its weight gradient (dw1) stay as f32 FMAs on
+// the CUDA cores.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "stem_sm90.cuh"
 
 namespace {
 
 constexpr int kH = 300, kW = 300, kC = 64;
 constexpr int kPH = kH / 2, kPW = kW / 2;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLd = 80;                           // padded channel stride (bf16)
 constexpr int kXW = kW + 2;                       // one input row with SAME padding
-constexpr int kTH = 16, kTW = 32;                 // stage-2 conv tile
-constexpr int kYH = kTH + 2, kYW = kTW + 2;       // its halo, 18x34
-constexpr int kTilesY = (kH + kTH - 1) / kTH;     // 19
-constexpr int kTilesX = (kW + kTW - 1) / kTW;     // 10
 constexpr int kVecRows = 16;                      // per-channel vectors handed in
+constexpr size_t kVecBytes = kVecRows * kC * 4;   // 4096
 
-// stage2 shared memory
-constexpr size_t kWBytes = 9 * kC * kLd * 2;            // 92160
-constexpr size_t kHaloBytes = kYH * kYW * kLd * 2;      // 97920
-constexpr size_t kStageBytes = kWarps * 256 * 4;        // 8192
-constexpr size_t kRedBytes = kWarps * 32 * 8 * 4;       // 8192
-constexpr size_t kVecBytes = kVecRows * kC * 4;         // 4096
-constexpr size_t kS2OffHalo = kWBytes;
-constexpr size_t kS2OffStage = kS2OffHalo + kHaloBytes;
-constexpr size_t kS2OffRed = kS2OffStage + kStageBytes;
-constexpr size_t kS2OffVec = kS2OffRed + kRedBytes;
-constexpr size_t kS2Smem = kS2OffVec + kVecBytes;       // 210560
-static_assert(kS2OffHalo % 32 == 0 && kS2OffStage % 32 == 0, "WMMA needs 32-byte alignment");
+// stage2 shared memory: weights, two halos, two staging tiles, vectors, sums
+constexpr int kPrefetch = stem90::HALO_PIX * 8 / kThreads;  // 12 halo chunks a thread
+constexpr size_t kS2OffHalo = stem90::W_BYTES;
+constexpr size_t kS2OffStage = kS2OffHalo + 2 * stem90::HALO_BYTES;
+constexpr size_t kS2OffVec = kS2OffStage + 2 * stem90::STAGE_BYTES;
+constexpr size_t kS2OffRed = kS2OffVec + kVecBytes;
+constexpr size_t kS2Smem = kS2OffRed + 2 * 2 * kC * 4 + 1024;  // + alignment
+static_assert(stem90::HALO_PIX * 8 % kThreads == 0, "whole halo chunks a thread");
 
-// dw2 shared memory
-constexpr size_t kDyBytes = kTH * kTW * kLd * 2;        // 81920
-constexpr size_t kW2OffDy = kHaloBytes;
-constexpr size_t kW2OffVec = kW2OffDy + kDyBytes;
-constexpr size_t kW2Smem = kW2OffVec + kVecBytes;       // 183936
-static_assert(kW2OffDy % 32 == 0, "WMMA needs 32-byte alignment");
-constexpr int kW2MTiles = 9 * kC / 16;                  // 36 (tap, ci) row tiles
-constexpr int kW2PerWarp = kW2MTiles / 2;               // 18: two warps per N tile
+// dw2: three warpgroups, one per tap row dr; its shared memory: two
+// buffers of the operands (the y1n halo, then dy2)
+constexpr int kDwThreads = 384;
+constexpr int kDyPix = stem90::TR * stem90::HW;   // 256 output pixels a tile
+constexpr int kDyLd = 257;                        // pixels between dy2's channel chunks
+constexpr size_t kW2OffDy = stem90::HALO_BYTES;
+constexpr size_t kW2Buf = kW2OffDy + 8 * kDyLd * 16;
+constexpr size_t kW2Smem = 2 * kW2Buf + 1024;
 
 // dw1 shared memory
 constexpr size_t kF_X = 3 * kXW * 3;                    // floats
@@ -212,157 +215,270 @@ conv1_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 
 // ------------------------------------------- forward B / backward E (stage 2)
 //
-// MODE 0: src = y1; vec rows 0 a1, 1 c1, 2 b2; out = y2.
+// MODE 0: src = y1; vec rows 0 a1, 1 c1, 2 b2; out = y2, and aux = y1n,
+//         the operand on the tile's own pixels, for dw2.
 // MODE 1: src = dt2, src2 = y2, y1; vec rows 0 ginv2, 1 mu2, 2 inv2,
-//         3 S1_2/n, 4 S2_2/n, 5 a1, 6 c1, 7 mu1, 8 inv1; out = dt1.
-// w is [tap][k][n] bf16: MODE 0 w2 as [dr][dc][ci][co], MODE 1 the flipped
-// transpose [dr'][dc'][co][ci] = w2[2-dr'][2-dc'][ci][co].
-// One block of 8 warps computes one (image, 16x32 conv tile); warp w owns
-// conv rows 2w and 2w+1 as four 16-pixel M tiles by four 16-channel N tiles.
+//         3 S1_2/n, 4 S2_2/n, 5 a1, 6 c1, 7 mu1, 8 inv1; out = dt1, and
+//         aux = dy2, the operand on the tile's own pixels, for dw2.
+// w is the core's A operand [64][576] bf16 ([m][tap*64 + k]): MODE 0 w2 as
+// [co][dr][dc][ci], MODE 1 the flipped transpose [ci][dr'][dc'][co] =
+// w2[co][ci][2-dr'][2-dc'] (OIHW).  Block j takes tiles j, j + grid, ...
+// and writes one partial row [2][64] of the block's sums.
+
+// A 16-byte chunk of 8 bf16 values to and from floats in registers.
+__device__ __forceinline__ void unpack8(const int4& raw, float* out) {
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) out[q] = __bfloat162float(h[q]);
+}
+
+__device__ __forceinline__ int4 pack8(const float* in) {
+  __align__(16) __nv_bfloat16 h[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) h[q] = __float2bfloat16(in[q]);
+  return *reinterpret_cast<const int4*>(h);
+}
+
+// Halo pixel of fetch slot i of this thread (its channel chunk is tid & 7).
+__device__ __forceinline__ bool halo_pixel(const stem90::Tile& T, int i, int& pix, int& gr,
+                                           int& gc) {
+  pix = (threadIdx.x >> 3) + (kThreads / 8) * i;
+  gr = T.r0 - 1 + (pix >> 6);
+  gc = T.c0 - 1 + (pix & 63);
+  return gr >= 0 && gr < kH && gc >= 0 && gc < kW;
+}
+
+// Fetch slots I0 .. I1 - 1 of the raw halo of tile t into registers (src,
+// and src2 in MODE 1).
+template <int MODE, int I0 = 0, int I1 = kPrefetch>
+__device__ __forceinline__ void halo_fetch(const __nv_bfloat16* __restrict__ src,
+                                           const __nv_bfloat16* __restrict__ src2, int t,
+                                           int4 (&ra)[kPrefetch], int4 (&rb)[kPrefetch]) {
+  const stem90::Tile T = stem90::tile_of(t);
+  const int c = threadIdx.x & 7;
+#pragma unroll
+  for (int i = I0; i < I1; ++i) {
+    int pix, gr, gc;
+    ra[i] = rb[i] = make_int4(0, 0, 0, 0);
+    if (halo_pixel(T, i, pix, gr, gc)) {
+      const size_t off = pix_off(T.b, gr, gc) + c * 8;
+      ra[i] = __ldg(reinterpret_cast<const int4*>(src + off));
+      if (MODE == 1) rb[i] = __ldg(reinterpret_cast<const int4*>(src2 + off));
+    }
+  }
+}
+
+// Slots I0 .. I1 - 1 of the operand of tile t from the fetched registers:
+// MODE 0 bf16(relu(y1*a1 + c1)), MODE 1 bf16(BN2 backward); zero outside
+// the image.  The thread's eight channels are fixed (tid & 7), so their
+// vectors are read once a call.
+template <int MODE, int I0 = 0, int I1 = kPrefetch>
+__device__ __forceinline__ void halo_store(const int4 (&ra)[kPrefetch], const int4 (&rb)[kPrefetch],
+                                           int t, unsigned char* halo, const float* vs) {
+  const stem90::Tile T = stem90::tile_of(t);
+  const int c = threadIdx.x & 7;
+  constexpr int NV = MODE == 0 ? 2 : 5;
+  float cf[NV][8];
+#pragma unroll
+  for (int r = 0; r < NV; ++r) {
+    const float4* v4 = reinterpret_cast<const float4*>(vs + r * kC + c * 8);
+    *reinterpret_cast<float4*>(&cf[r][0]) = v4[0];
+    *reinterpret_cast<float4*>(&cf[r][4]) = v4[1];
+  }
+#pragma unroll
+  for (int i = I0; i < I1; ++i) {
+    int pix, gr, gc;
+    float o[8];
+    if (halo_pixel(T, i, pix, gr, gc)) {
+      float a[8];
+      unpack8(ra[i], a);
+      if constexpr (MODE == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = fmaxf(affine(a[k], cf[0][k], cf[1][k]), 0.0f);
+      } else {
+        float yv[8];
+        unpack8(rb[i], yv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = bn_bwd(a[k], yv[k], cf[0][k], cf[1][k], cf[2][k], cf[3][k], cf[NV - 1][k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = 0.0f;
+    }
+    *reinterpret_cast<int4*>(halo + (c * stem90::HALO_LD + pix) * 16) = pack8(o);
+  }
+}
+
+// Output pixel n (0..127) of warpgroup wg's accumulator: inside the image?
+__device__ __forceinline__ bool out_pixel(const stem90::Tile& T, int wg, int n, int& r, int& col) {
+  r = T.r0 + 2 * wg + (n >> 6);
+  col = T.c0 + (n & 63);
+  return (n & 63) < stem90::TW && col < kW;
+}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 stage2_kernel(const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ src2,
               const __nv_bfloat16* __restrict__ w, const float* __restrict__ vec,
               const __nv_bfloat16* __restrict__ y1, __nv_bfloat16* __restrict__ out,
-              float* __restrict__ part) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + kS2OffHalo);
-  float* stage = reinterpret_cast<float*>(smem + kS2OffStage);
-  float* red = reinterpret_cast<float*>(smem + kS2OffRed);
+              __nv_bfloat16* __restrict__ aux, float* __restrict__ part, int B) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  unsigned char* halo = smem + kS2OffHalo;
   float* vs = reinterpret_cast<float*>(smem + kS2OffVec);
+  float* red = reinterpret_cast<float*>(smem + kS2OffRed);
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int R0 = blockIdx.y * kTH, C0 = blockIdx.x * kTW;
-
-  {
-    const int4* wsrc = reinterpret_cast<const int4*>(w);  // 8 int4 per 64-wide row
-    for (int v = tid; v < 9 * kC * 8; v += kThreads) {
-      const int row = v >> 3, part8 = v & 7;
-      reinterpret_cast<int4*>(ws + row * kLd)[part8] = wsrc[v];
-    }
-    for (int v = tid; v < kVecRows * kC; v += kThreads) vs[v] = vec[v];
-  }
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* stage = smem + kS2OffStage + wg * stem90::STAGE_BYTES;
+  stem90::stage_weights(w, smem);
+  stem90::zero_halo_pad(halo);
+  stem90::zero_halo_pad(halo + stem90::HALO_BYTES);
+  for (int v = tid; v < kVecRows * kC; v += kThreads) vs[v] = vec[v];
   __syncthreads();
 
-  // ---- the haloed operand tile (bf16), zero outside the image ----
-  for (int item = tid; item < 8 * kYH * kYW; item += kThreads) {
-    const int cg = item / (kYH * kYW), pix = item % (kYH * kYW);
-    const int gr = R0 - 1 + pix / kYW, gc = C0 - 1 + pix % kYW;
-    float o[8];
-    if (gr >= 0 && gr < kH && gc >= 0 && gc < kW) {
-      const size_t off = pix_off(b, gr, gc) + cg * 8;
-      float a[8];
-      load8(src + off, a);
-      if (MODE == 0) {
+  // this thread's two output channels and their epilogue constants
+  int co[2];
+  float e0[2], e1[2], e2[2], e3[2];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int c = cg * 8 + k;
-          o[k] = fmaxf(affine(a[k], vs[c], vs[kC + c]), 0.0f);
-        }
-      } else {
-        float yv[8];
-        load8(src2 + off, yv);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int c = cg * 8 + k;
-          o[k] = bn_bwd(a[k], yv[k], vs[c], vs[kC + c], vs[2 * kC + c], vs[3 * kC + c],
-                        vs[4 * kC + c]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = 0.0f;
-    }
-    store8(hs + pix * kLd + cg * 8, o);
+  for (int h = 0; h < 2; ++h) {
+    co[h] = 16 * warp + (lane >> 2) + 8 * h;
+    e0[h] = vs[(MODE == 0 ? 2 : 5) * kC + co[h]];  // b2 | a1
+    e1[h] = vs[6 * kC + co[h]];                    // c1
+    e2[h] = vs[7 * kC + co[h]];                    // mu1
+    e3[h] = vs[8 * kC + co[h]];                    // inv1
   }
-  __syncthreads();
+  float s[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
 
-  // ---- implicit GEMM on the tensor cores, depth 9 * 64 ----
-  const int warp = tid >> 5, lane = tid & 31;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) wmma::fill_fragment(acc[mt][nn], 0.0f);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dr = tap / 3, dc = tap % 3;
-#pragma unroll
-    for (int kk = 0; kk < kC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-        wmma::load_matrix_sync(bfr[nn], ws + (tap * kC + kk * 16) * kLd + nn * 16, kLd);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int yr = 2 * warp + (mt >> 1) + dr;
-        const int yc = 16 * (mt & 1) + dc;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afr;
-        wmma::load_matrix_sync(afr, hs + (yr * kYW + yc) * kLd + kk * 16, kLd);
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) wmma::mma_sync(acc[mt][nn], afr, bfr[nn], acc[mt][nn]);
-      }
-    }
+  // Two halo buffers: the tensor cores read tile t's while the threads write
+  // tile t + grid's from the registers fetched during tile t - grid, and
+  // fetch tile t + 2 * grid's, a third of the slots between each group of
+  // three taps.
+  const uint32_t wa = sm90::smem_u32(smem);
+  const int ntiles = B * stem90::TILES;
+  int4 ra[kPrefetch], rb[kPrefetch];
+  if ((int)blockIdx.x < ntiles) {
+    halo_fetch<MODE>(src, src2, blockIdx.x, ra, rb);
+    halo_store<MODE>(ra, rb, blockIdx.x, halo, vs);
+    if ((int)(blockIdx.x + gridDim.x) < ntiles)
+      halo_fetch<MODE>(src, src2, blockIdx.x + gridDim.x, ra, rb);
   }
+  sm90::fence_proxy_async();
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const stem90::Tile T = stem90::tile_of(tile);
+    unsigned char* cur = halo + (it & 1) * stem90::HALO_BYTES;
+    unsigned char* nxt = halo + ((it + 1) & 1) * stem90::HALO_BYTES;
+    __syncthreads();  // cur is written; the last tile's wgmmas and staging reads are done
 
-  // ---- epilogue: one 16x16 tile at a time through shared memory ----
-  float* st = stage + warp * 256;
-  const int ch = lane & 15;
-  float s[4], q[4];
+    float acc[64];
+    const uint32_t ca = sm90::smem_u32(cur);
+    const int next = tile + gridDim.x, after = next + gridDim.x;
+    stem90::conv_begin(acc);
+    stem90::conv_taps<0, 3>(acc, wa, ca, wg);
+    if (next < ntiles) {
+      halo_store<MODE, 0, 4>(ra, rb, next, nxt, vs);
+      if (after < ntiles) halo_fetch<MODE, 0, 4>(src, src2, after, ra, rb);
+    }
+    stem90::conv_taps<3, 6>(acc, wa, ca, wg);
+    if (next < ntiles) {
+      halo_store<MODE, 4, 8>(ra, rb, next, nxt, vs);
+      if (after < ntiles) halo_fetch<MODE, 4, 8>(src, src2, after, ra, rb);
+    }
+    stem90::conv_taps<6, 9>(acc, wa, ca, wg);
+    stem90::conv_end(acc);
+    if (next < ntiles) {
+      halo_store<MODE, 8, 12>(ra, rb, next, nxt, vs);
+      if (after < ntiles) halo_fetch<MODE, 8, 12>(src, src2, after, ra, rb);
+    }
+    if (MODE == 1) {  // y1 of this warpgroup's output pixels, for the ReLU mask
+      for (int v = t; v < stem90::N_WG * 8; v += 128) {
+        int r, col;
+        if (out_pixel(T, wg, v >> 3, r, col))
+          stem90::cp_async16z(stage + (v >> 3) * stem90::STAGE_LD + (v & 7) * 16,
+                              y1 + pix_off(T.b, r, col) + (v & 7) * 8, true);
+      }
+      stem90::cp_async_commit();
+    }
+    sm90::wgmma_wait<0>();
 #pragma unroll
-  for (int nn = 0; nn < 4; ++nn) {
-    s[nn] = q[nn] = 0.0f;
-    const int c = nn * 16 + ch;
+    for (int i = 0; i < 64; ++i) sm90::fence_operand(acc[i]);
+    if (MODE == 1) {
+      stem90::cp_async_wait_all();
+      sm90::named_barrier(1 + wg, 128);
+    }
+
+    // epilogue: acc[4j + 2h + e] is channel co[h] at column n = 8j + 2q + e;
+    // four 8x8 tiles (j0 + m / 2, h = m % 2) at a time go to and from the
+    // staging tile through stmatrix / ldmatrix (transposed: pixel rows).
+    const int lim = min(stem90::TW, kW - T.c0);  // valid columns of a tile row
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      wmma::store_matrix_sync(st, acc[mt][nn], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = R0 + 2 * warp + (mt >> 1);
+    for (int j0 = 0; j0 < 16; j0 += 2) {
+      const int mi = lane >> 3;
+      unsigned char* row = stage + (8 * (j0 + (mi >> 1)) + (lane & 7)) * stem90::STAGE_LD +
+                           (16 * warp + 8 * (mi & 1)) * 2;
+      uint32_t rr[4];
+      if (MODE == 1) stem90::ldmatrix_x4_trans(row, rr);  // y1
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int px = (lane >> 4) + 2 * k;
-        const int col = C0 + 16 * (mt & 1) + px;
-        if (row < kH && col < kW) {
-          const float v = st[px * 16 + ch];
-          const size_t off = pix_off(b, row, col) + c;
+      for (int m = 0; m < 4; ++m) {
+        const int j = j0 + (m >> 1), h = m & 1;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = ((8 * j + 2 * q + e) & 63) < lim;
+          const float v = acc[4 * j + 2 * h + e];
           if (MODE == 0) {
-            const float h = round_bf16(v + vs[2 * kC + c]);  // y2 = bf16(conv + b2)
-            out[off] = __float2bfloat16(h);
-            s[nn] += h;
-            q[nn] += h * h;
+            o[e] = round_bf16(v + e0[h]);  // y2 = bf16(conv + b2)
+            if (valid) {
+              s[h] += o[e];
+              sq[h] += o[e] * o[e];
+            }
           } else {
-            const float yv = __bfloat162float(y1[off]);
-            const float dt = affine(yv, vs[5 * kC + c], vs[6 * kC + c]) > 0.0f ? v : 0.0f;
-            out[off] = __float2bfloat16(dt);
-            s[nn] += dt;
-            q[nn] += dt * __fmul_rn(__fadd_rn(yv, -vs[7 * kC + c]), vs[8 * kC + c]);
+            const float2 y2v = stem90::unpack_bf16x2(rr[m]);
+            const float yv = e ? y2v.y : y2v.x;
+            o[e] = affine(yv, e0[h], e1[h]) > 0.0f ? v : 0.0f;
+            if (valid) {
+              s[h] += o[e];
+              sq[h] += o[e] * __fmul_rn(__fadd_rn(yv, -e2[h]), e3[h]);
+            }
           }
         }
+        rr[m] = stem90::pack_bf16x2(o[0], o[1]);
       }
-      __syncwarp();
+      stem90::stmatrix_x4_trans(row, rr);
     }
+    sm90::named_barrier(1 + wg, 128);
+    // out from the staging tile; aux, the operand on the same pixels, from
+    // the halo (pixel n of the warpgroup is halo pixel (2wg + 1) * 64 + n + 1)
+    for (int v = t; v < stem90::N_WG * 8; v += 128) {
+      int r, col;
+      const int n = v >> 3, c = v & 7;
+      if (out_pixel(T, wg, n, r, col)) {
+        const size_t off = pix_off(T.b, r, col) + c * 8;
+        *reinterpret_cast<int4*>(out + off) =
+            *reinterpret_cast<const int4*>(stage + n * stem90::STAGE_LD + c * 16);
+        *reinterpret_cast<int4*>(aux + off) = *reinterpret_cast<const int4*>(
+            cur + (c * stem90::HALO_LD + (2 * wg + 1) * stem90::HW + n + 1) * 16);
+      }
+    }
+    sm90::fence_proxy_async();  // the next halo's writes, before the tensor cores read it
   }
 
-  // ---- per-block partial sums, fixed order ----
+  // ---- the block's partial sums, fixed order: lanes, then warpgroups ----
 #pragma unroll
-  for (int nn = 0; nn < 4; ++nn) {
-    red[(warp * 32 + lane) * 8 + nn] = s[nn];
-    red[(warp * 32 + lane) * 8 + 4 + nn] = q[nn];
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 1);
+    sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], 2);
+    if (q == 0) {
+      red[wg * 2 * kC + co[h]] = s[h];
+      red[wg * 2 * kC + kC + co[h]] = sq[h];
+    }
   }
   __syncthreads();
-  if (tid < 2 * kC) {
-    const int which = tid / kC, c = tid % kC, nn = c >> 4, cl = c & 15;
-    float total = 0.0f;
-    for (int wp = 0; wp < kWarps; ++wp) {
-      total += red[(wp * 32 + cl) * 8 + which * 4 + nn];
-      total += red[(wp * 32 + cl + 16) * 8 + which * 4 + nn];
-    }
-    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    part[(size_t)blk * 2 * kC + tid] = total;
-  }
+  if (tid < 2 * kC) part[(size_t)blockIdx.x * 2 * kC + tid] = red[tid] + red[2 * kC + tid];
 }
 
 // ------------------------------------------------------------ forward C
@@ -450,97 +566,102 @@ route_kernel(const __nv_bfloat16* __restrict__ y2, const __nv_bfloat16* __restri
 
 // ---------------------------------------------------------- backward dW2
 //
-// vec rows: 0 a1, 1 c1, 2 ginv2, 3 mu2, 4 inv2, 5 S1_2/n, 6 S2_2/n.
-// Block j accumulates dW2 [576][64] over tiles j, j + grid, ...: warp w owns
-// N tile w & 3 and M tiles 18*(w >> 2) .. +18, M = (tap, ci).  The A operand
-// (ci x pixel) is a column-major view of the y1n halo tile, B (pixel x co)
-// the dy2 tile; each K step is 16 pixels of one conv row.
+// Block j accumulates dW2 [576][64] over tiles j, j + grid, ...: warpgroup
+// dr holds the three taps (dr, 0..2) as m64n64 accumulators (M = ci, N =
+// co).  Both operands were written by the stage-2 launches, y1n by
+// stage2<0> and dy2 by stage2<1>, so a tile's operands are plain copies:
+// cp.async brings the y1n halo and dy2 on the tile's 4 x 64 output pixels
+// (zeros outside the image and in the thrown-away columns) straight into
+// the core's layout, one tile ahead into the second buffer.  K is the
+// output pixels, 16 a step, and tap (dr, dc) of pixel p reads halo pixel
+// p + dr * 64 + dc.  Both operands are MN-major: 8 channels of a pixel are
+// 16 contiguous bytes and pixels are 16 bytes apart.
 
-__global__ void __launch_bounds__(kThreads, 1)
-dw2_kernel(const __nv_bfloat16* __restrict__ y1, const __nv_bfloat16* __restrict__ dt2,
-           const __nv_bfloat16* __restrict__ y2, const float* __restrict__ vec,
-           float* __restrict__ part, int B) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(smem + kW2OffDy);
-  float* vs = reinterpret_cast<float*>(smem + kW2OffVec);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n = warp & 3, mh = warp >> 2;
-  for (int v = tid; v < kVecRows * kC; v += kThreads) vs[v] = vec[v];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kW2PerWarp];
-#pragma unroll
-  for (int mm = 0; mm < kW2PerWarp; ++mm) wmma::fill_fragment(acc[mm], 0.0f);
-
-  const int ntiles = B * kTilesY * kTilesX;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int bx = t % kTilesX, by = (t / kTilesX) % kTilesY, b = t / (kTilesX * kTilesY);
-    const int R0 = by * kTH, C0 = bx * kTW;
-    __syncthreads();  // vec staged; the previous tile's MMAs are done
-    for (int item = tid; item < 8 * kYH * kYW; item += kThreads) {
-      const int cg = item / (kYH * kYW), pix = item % (kYH * kYW);
-      const int gr = R0 - 1 + pix / kYW, gc = C0 - 1 + pix % kYW;
-      float o[8];
-      if (gr >= 0 && gr < kH && gc >= 0 && gc < kW) {
-        float a[8];
-        load8(y1 + pix_off(b, gr, gc) + cg * 8, a);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int c = cg * 8 + k;
-          o[k] = fmaxf(affine(a[k], vs[c], vs[kC + c]), 0.0f);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] = 0.0f;
-      }
-      store8(hs + pix * kLd + cg * 8, o);
-    }
-    for (int item = tid; item < 8 * kTH * kTW; item += kThreads) {
-      const int cg = item / (kTH * kTW), pix = item % (kTH * kTW);
-      const int gr = R0 + pix / kTW, gc = C0 + pix % kTW;
-      float o[8];
-      if (gr < kH && gc < kW) {
-        const size_t off = pix_off(b, gr, gc) + cg * 8;
-        float dt[8], yv[8];
-        load8(dt2 + off, dt);
-        load8(y2 + off, yv);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int c = cg * 8 + k;
-          o[k] = bn_bwd(dt[k], yv[k], vs[2 * kC + c], vs[3 * kC + c], vs[4 * kC + c],
-                        vs[5 * kC + c], vs[6 * kC + c]);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] = 0.0f;
-      }
-      store8(ds + pix * kLd + cg * 8, o);
-    }
-    __syncthreads();
-
-    for (int i = 0; i < kTH; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, ds + (i * kTW + 16 * hh) * kLd + n * 16, kLd);
-#pragma unroll
-        for (int mm = 0; mm < kW2PerWarp; ++mm) {
-          const int m = mh * kW2PerWarp + mm, tap = m >> 2, cib = m & 3;
-          const int dr = tap / 3, dc = tap % 3;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> afr;
-          wmma::load_matrix_sync(afr, hs + ((i + dr) * kYW + 16 * hh + dc) * kLd + cib * 16, kLd);
-          wmma::mma_sync(acc[mm], afr, bfr, acc[mm]);
-        }
-      }
-    }
+__device__ __forceinline__ void dw2_fetch(const __nv_bfloat16* __restrict__ y1n,
+                                          const __nv_bfloat16* __restrict__ dy2, int t,
+                                          unsigned char* buf) {
+  const stem90::Tile T = stem90::tile_of(t);
+  const int c = threadIdx.x & 7;
+  for (int pix = threadIdx.x >> 3; pix < stem90::HALO_PIX; pix += kDwThreads / 8) {
+    const int gr = T.r0 - 1 + (pix >> 6), gc = T.c0 - 1 + (pix & 63);
+    const bool inside = gr >= 0 && gr < kH && gc >= 0 && gc < kW;
+    stem90::cp_async16z(buf + (c * stem90::HALO_LD + pix) * 16,
+                        inside ? y1n + pix_off(T.b, gr, gc) + c * 8 : y1n, inside);
   }
+  for (int pix = threadIdx.x >> 3; pix < kDyPix; pix += kDwThreads / 8) {
+    const int gc = T.c0 + (pix & 63);
+    const bool valid = (pix & 63) < stem90::TW && gc < kW;
+    stem90::cp_async16z(buf + kW2OffDy + (c * kDyLd + pix) * 16,
+                        valid ? dy2 + pix_off(T.b, T.r0 + (pix >> 6), gc) + c * 8 : dy2, valid);
+  }
+}
 
+__global__ void __launch_bounds__(kDwThreads, 1)
+dw2_kernel(const __nv_bfloat16* __restrict__ y1n, const __nv_bfloat16* __restrict__ dy2,
+           float* __restrict__ part, int B) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  const int tid = threadIdx.x, dr = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  stem90::zero_halo_pad(smem);
+  stem90::zero_halo_pad(smem + kW2Buf);
+  sm90::fence_proxy_async();
+
+  float acc[3][32];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[d][i] = 0.0f;
+
+  const int ntiles = B * stem90::TILES;
+  if ((int)blockIdx.x < ntiles) dw2_fetch(y1n, dy2, blockIdx.x, smem);
+  stem90::cp_async_commit();
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    unsigned char* cur = smem + (it & 1) * kW2Buf;
+    stem90::cp_async_wait_all();
+    sm90::fence_proxy_async();
+    __syncthreads();  // this tile's copies are in; the last tile's wgmmas are done
+    if (tile + (int)gridDim.x < ntiles)
+      dw2_fetch(y1n, dy2, tile + gridDim.x, smem + ((it + 1) & 1) * kW2Buf);
+    stem90::cp_async_commit();
+
+    const uint32_t ha = sm90::smem_u32(cur), da0 = ha + kW2OffDy;
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::fence_operand(acc[d][i]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kDyPix / 16; ++s) {
+      const uint64_t db = stem90::desc0(da0 + s * 16 * 16, 128, kDyLd * 16);
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc) {
+        const uint64_t da =
+            stem90::desc0(ha + (16 * s + dr * stem90::HW + dc) * 16, 128, stem90::HALO_LD * 16);
+        stem90::wgmma_64<1, 1>(acc[dc], da, db);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sm90::fence_operand(acc[d][i]);
+  }
+  stem90::cp_async_wait_all();
+
+  // acc[dc][4j + 2h + e]: ci = 16 * warp + lane / 4 + 8h, co = 8j + 2 * (lane % 4) + e
   float* prow = part + (size_t)blockIdx.x * (9 * kC * kC);
 #pragma unroll
-  for (int mm = 0; mm < kW2PerWarp; ++mm) {
-    const int m = mh * kW2PerWarp + mm;
-    wmma::store_matrix_sync(prow + (size_t)m * 16 * kC + n * 16, acc[mm], kC, wmma::mem_row_major);
-  }
+  for (int dc = 0; dc < 3; ++dc)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = 16 * warp + (lane >> 2) + 8 * h, co = 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(prow + ((dr * 3 + dc) * kC + ci) * kC + co) =
+            make_float2(acc[dc][4 * j + 2 * h], acc[dc][4 * j + 2 * h + 1]);
+      }
 }
 
 // ---------------------------------------------------------- backward dW1
@@ -640,23 +761,24 @@ extern "C" int ssdx_st_conv1(const void* x, const float* w1, const float* b1, vo
   return (int)cudaGetLastError();
 }
 
-// Partial rows: B * 19 * 10, one per conv tile.
+// Partial rows: `grid`, one per persistent block.
+// aux: the operand on the tiles' own pixels, y1n (mode 0) or dy2 (mode 1).
 extern "C" int ssdx_st_stage2(int mode, const void* src, const void* src2, const void* w,
-                              const float* vec, const void* y1, void* out, float* part, int B,
-                              cudaStream_t stream) {
-  const dim3 grid(kTilesX, kTilesY, B);
+                              const float* vec, const void* y1, void* out, void* aux,
+                              float* part, int B, int grid, cudaStream_t stream) {
   const auto* s = reinterpret_cast<const __nv_bfloat16*>(src);
   const auto* s2 = reinterpret_cast<const __nv_bfloat16*>(src2);
   const auto* wp = reinterpret_cast<const __nv_bfloat16*>(w);
   const auto* y = reinterpret_cast<const __nv_bfloat16*>(y1);
   auto* o = reinterpret_cast<__nv_bfloat16*>(out);
+  auto* d = reinterpret_cast<__nv_bfloat16*>(aux);
   cudaError_t e;
   if (mode == 0) {
     if ((e = allow_smem(stage2_kernel<0>, kS2Smem)) != cudaSuccess) return (int)e;
-    stage2_kernel<0><<<grid, kThreads, kS2Smem, stream>>>(s, s2, wp, vec, y, o, part);
+    stage2_kernel<0><<<grid, kThreads, kS2Smem, stream>>>(s, s2, wp, vec, y, o, d, part, B);
   } else {
     if ((e = allow_smem(stage2_kernel<1>, kS2Smem)) != cudaSuccess) return (int)e;
-    stage2_kernel<1><<<grid, kThreads, kS2Smem, stream>>>(s, s2, wp, vec, y, o, part);
+    stage2_kernel<1><<<grid, kThreads, kS2Smem, stream>>>(s, s2, wp, vec, y, o, d, part, B);
   }
   return (int)cudaGetLastError();
 }
@@ -677,13 +799,13 @@ extern "C" int ssdx_st_route(const void* y2, const void* dp, const float* vec, v
 }
 
 // Partial rows of 576 * 64 floats ([tap][ci][co]).
-extern "C" int ssdx_st_dw2(const void* y1, const void* dt2, const void* y2, const float* vec,
-                           float* part, int B, int grid, cudaStream_t stream) {
+extern "C" int ssdx_st_dw2(const void* y1n, const void* dy2, float* part, int B, int grid,
+                           cudaStream_t stream) {
   cudaError_t e = allow_smem(dw2_kernel, kW2Smem);
   if (e != cudaSuccess) return (int)e;
-  dw2_kernel<<<grid, kThreads, kW2Smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(y1), reinterpret_cast<const __nv_bfloat16*>(dt2),
-      reinterpret_cast<const __nv_bfloat16*>(y2), vec, part, B);
+  dw2_kernel<<<grid, kDwThreads, kW2Smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(y1n), reinterpret_cast<const __nv_bfloat16*>(dy2),
+      part, B);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,9 @@
 ``stem_conv_pool`` turns ``[B,300,300,3]`` images into the
 ``[B,150,150,64]`` map that ``SSD300(stem_input=True)`` takes.  On a CUDA
 tensor it launches the hand-written kernel of ``csrc/stem.cu`` (bf16 in and
-out, f32 accumulation, the 300x300x64 intermediates kept on chip; the
-source's header gives its bound and design).  On a CPU tensor it runs
+out, f32 accumulation, the 300x300x64 intermediates kept on chip, both
+convolutions on wgmma; the source's header gives its bound and design, and
+``csrc/stem_sm90.cuh`` the 3x3 64->64 core it shares with ``stem_train``).  On a CPU tensor it runs
 :func:`stem_conv_pool_ref`, the plain PyTorch version, which is also the
 kernel's oracle on the card.  It replaces the JAX package's TPU kernel
 ``ssdx/ops/pallas_stem.py::stem_conv_pool``.
@@ -21,12 +22,33 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["stem_conv_pool", "stem_conv_pool_ref", "launches"]
+__all__ = ["stem_conv_pool", "stem_conv_pool_ref", "launches", "TILE_ROWS", "TILE_COLS",
+           "TILES_PER_IMAGE", "grid_size", "tile_origin"]
 
 launches = 0  # kernel launches by stem_conv_pool
 
 _H, _C = 300, 64
+_SMS = 132  # streaming multiprocessors of an H100 SXM: one persistent block each
+# The conv tile of the wgmma core (csrc/stem_sm90.cuh: TR, TW, TILES_X):
+# 4 conv rows by 62 columns, 75 x 5 tiles an image, walked by persistent
+# blocks in the order tile = block, block + grid, ...
+TILE_ROWS, TILE_COLS = 4, 62
+_TILES_X = -(-_H // TILE_COLS)
+TILES_PER_IMAGE = (_H // TILE_ROWS) * _TILES_X
 _lib = None
+
+
+def grid_size(B):
+    """Persistent blocks of a launch over ``B`` images (the stem kernels and
+    stem_train's stage2 and dw2 use the same)."""
+    return min(B * TILES_PER_IMAGE, _SMS)
+
+
+def tile_origin(t):
+    """``(image, first conv row, first conv column)`` of tile ``t``, as the
+    core's ``tile_of`` computes it."""
+    b, rem = divmod(t, TILES_PER_IMAGE)
+    return b, (rem // _TILES_X) * TILE_ROWS, (rem % _TILES_X) * TILE_COLS
 
 
 def stem_conv_pool_ref(images, w1, b1, w2, b2, dtype=torch.bfloat16):
@@ -42,7 +64,8 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("stem")
-        lib.ssdx_stem_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        lib.ssdx_stem_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                                          + [ctypes.c_void_p])
         lib.ssdx_stem_forward.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -73,15 +96,16 @@ def stem_conv_pool(images, w1, b1, w2, b2, dtype=torch.bfloat16):
         raise ValueError("stem_conv_pool: images and weights must share a device")
     bf = torch.bfloat16
     x = images.to(bf).contiguous()
-    w1p = w1.to(bf).float().permute(2, 3, 1, 0).contiguous()  # [dr][dc][ci][co]
+    w1p = F.pad(w1.to(bf).permute(0, 2, 3, 1).reshape(_C, 27), (0, 5)).contiguous()  # [co][32]
     b1p = b1.to(bf).float().contiguous()
-    w2p = w2.to(bf).permute(2, 3, 1, 0).contiguous()           # [tap][ci][co]
+    w2p = w2.to(bf).permute(0, 2, 3, 1).reshape(_C, 9 * _C).contiguous()  # [co][tap*64+ci]
     b2p = b2.float().contiguous()
     out = torch.empty((B, _H // 2, _H // 2, _C), dtype=bf, device=dev)
     with torch.cuda.device(dev):
         err = _kernel().ssdx_stem_forward(
             x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
-            b2p.data_ptr(), out.data_ptr(), B, torch.cuda.current_stream(dev).cuda_stream)
+            b2p.data_ptr(), out.data_ptr(), B, grid_size(B),
+            torch.cuda.current_stream(dev).cuda_stream)
     # The temporaries above are freed on return while the kernel may still
     # run; the caching allocator hands their memory only to later work on
     # this same stream, which runs after the kernel.

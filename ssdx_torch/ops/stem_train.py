@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from ..mesh import all_reduce_sum
 from . import _build
+from .stem import grid_size
 
 __all__ = ["stem_train", "stem_train_ref", "pool_routing_ref", "StemTrain", "StemTrainRef",
            "launches"]
@@ -55,7 +56,6 @@ launches = 0  # forwards of stem_train that launched the kernels
 
 _H, _C = 300, 64
 _SMS = 132  # streaming multiprocessors of an H100 SXM
-_TILES = 19 * 10  # stage-2 conv tiles of 16x32 per image
 _lib = None
 
 
@@ -216,10 +216,10 @@ def _kernel():
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
         sigs = {
             "ssdx_st_conv1": [P, P, P, P, P, I, I, S],
-            "ssdx_st_stage2": [I, P, P, P, P, P, P, P, I, S],
+            "ssdx_st_stage2": [I, P, P, P, P, P, P, P, P, I, I, S],
             "ssdx_st_pool": [P, P, P, I, I, S],
             "ssdx_st_route": [P, P, P, P, P, I, I, S],
-            "ssdx_st_dw2": [P, P, P, P, P, I, I, S],
+            "ssdx_st_dw2": [P, P, P, I, I, S],
             "ssdx_st_dw1": [P, P, P, P, P, I, I, S],
             "ssdx_st_colsum": [P, I, I, P, S],
         }
@@ -249,9 +249,7 @@ def _colsum(part):
 
 def _vec(rows, dev):
     """Per-channel vectors as the ``[16, 64]`` float32 block the kernels read."""
-    v = torch.zeros((16, _C), dtype=torch.float32, device=dev)
-    v[: len(rows)] = torch.stack([r.float() for r in rows])
-    return v
+    return F.pad(torch.stack([r.float() for r in rows]), (0, 0, 0, 16 - len(rows)))
 
 
 def _stats_from_sums(sums, n, eps):
@@ -271,7 +269,7 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     xb = x.detach().to(bf).contiguous()
     w1p = w1.detach().to(bf).float().permute(2, 3, 1, 0).reshape(27, _C).contiguous()
     b1p = b1.detach().to(bf).float().contiguous()
-    w2p = w2.detach().to(bf).permute(2, 3, 1, 0).contiguous()  # [dr][dc][ci][co]
+    w2p = w2.detach().to(bf).permute(0, 2, 3, 1).reshape(_C, 9 * _C).contiguous()  # [co][tap*64+ci]
 
     y1 = _empty((B, _H, _H, _C), bf, dev)
     grid = min(B * _H, 4 * _SMS)
@@ -280,19 +278,20 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     mean1, var1, inv1 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
     a1, c1 = _affine(g1, be1, mean1, inv1)
 
-    y2 = _empty((B, _H, _H, _C), bf, dev)
-    part = _empty((B * _TILES, 2 * _C), f32, dev)
+    y2, y1n = _empty((B, _H, _H, _C), bf, dev), _empty((B, _H, _H, _C), bf, dev)
+    grid = grid_size(B)
+    part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_stage2", 0, y1, None, w2p, _vec([a1, c1, b2.detach()], dev), None,
-            y2, part, B)
+            y2, y1n, part, B, grid)
     mean2, var2, inv2 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
     a2, c2 = _affine(g2, be2, mean2, inv2)
 
     p = _empty((B, _H // 2, _H // 2, _C), bf, dev)
     _launch("ssdx_st_pool", y2, _vec([a2, c2], dev), p, B, 16 * _SMS)
-    return p, (mean1, var1, inv1, mean2, var2, inv2), y1, y2, xb
+    return p, (mean1, var1, inv1, mean2, var2, inv2), y1, y2, xb, y1n
 
 
-def _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats, mesh=None):
+def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None):
     mean1, var1, inv1, mean2, var2, inv2 = stats
     bf, f32, dev = torch.bfloat16, torch.float32, dp.device
     B = dp.shape[0]
@@ -310,21 +309,23 @@ def _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats, mesh=None):
     s1_2, s2_2 = sums[:_C], sums[_C:]  # this rank's: the returned dbeta2, dgamma2
     s1_2g, s2_2g = _global_sums(s1_2, s2_2, mesh)
 
-    # E: BN2 backward, conv1_2^T, ReLU mask -> dt1, BN1 sums
-    w2t = w2.detach().to(bf).flip(2, 3).permute(2, 3, 0, 1).contiguous()  # [dr'][dc'][co][ci]
-    dt1 = _empty(y1.shape, bf, dev)
-    part = _empty((B * _TILES, 2 * _C), f32, dev)
+    # E: BN2 backward (dy2, kept for dW2), conv1_2^T, ReLU mask -> dt1, BN1 sums
+    # [ci][dr'][dc'][co] = w2[co][ci][2-dr'][2-dc']
+    w2t = w2.detach().to(bf).flip(2, 3).permute(1, 2, 3, 0).reshape(_C, 9 * _C).contiguous()
+    dt1, dy2 = _empty(y1.shape, bf, dev), _empty(y1.shape, bf, dev)
+    grid = grid_size(B)
+    part = _empty((grid, 2 * _C), f32, dev)
     vec_e = _vec([g2 * inv2, mean2, inv2, s1_2g / n, s2_2g / n, a1, c1, mean1, inv1], dev)
-    _launch("ssdx_st_stage2", 1, dt2, y2, w2t, vec_e, y1, dt1, part, B)
+    _launch("ssdx_st_stage2", 1, dt2, y2, w2t, vec_e, y1, dt1, dy2, part, B, grid)
     sums = _colsum(part)
     s1_1, s2_1 = sums[:_C], sums[_C:]
     s1_1g, s2_1g = _global_sums(s1_1, s2_1, mesh)
 
     # dW2: split-K over conv tiles, one slice per SM
-    grid = min(B * _TILES, _SMS)
+    grid = grid_size(B)
     part = _empty((grid, 9 * _C * _C), f32, dev)
-    vec_w2 = _vec([a1, c1, g2 * inv2, mean2, inv2, s1_2g / n, s2_2g / n], dev)
-    _launch("ssdx_st_dw2", y1, dt2, y2, vec_w2, part, B, grid)
+    _launch("ssdx_st_dw2", y1n, dy2, part, B, grid)
+    del dy2
     dw2 = _colsum(part).view(3, 3, _C, _C).permute(3, 2, 0, 1).contiguous()
 
     # F: BN1 backward and dW1
@@ -345,13 +346,14 @@ class StemTrain(torch.autograd.Function):
     def forward(ctx, x, w1, b1, g1, be1, w2, b2, g2, be2, eps, dtype, mesh=None):
         bn = tuple(t.detach().float() for t in (g1, be1, g2, be2))
         ctx.mesh = mesh
-        p, stats, y1, y2, xb = _kernel_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps, mesh)
-        return (p, *_save(ctx, x, (xb, w2), bn, y1, y2, stats, eps, dtype))
+        p, stats, y1, y2, xb, y1n = _kernel_forward(x, w1, b1, *bn[:2], w2, b2, *bn[2:], eps,
+                                                    mesh)
+        return (p, *_save(ctx, x, (xb, w2, y1n), bn, y1, y2, stats, eps, dtype))
 
     @staticmethod
     def backward(ctx, dp, *_stat_cotangents):
-        (xb, w2), (g1, be1, g2, be2), y1, y2, stats = _unsave(ctx)
-        grads = _kernel_backward(dp, xb, w2, g1, be1, g2, be2, y1, y2, stats, ctx.mesh)
+        (xb, w2, y1n), (g1, be1, g2, be2), y1, y2, stats = _unsave(ctx)
+        grads = _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, ctx.mesh)
         return _grads(ctx, dp, *grads)
 
 

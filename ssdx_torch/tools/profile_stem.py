@@ -1,0 +1,253 @@
+"""Where the device time of the two stem kernels goes, on one GPU.
+
+    python -m ssdx_torch.tools.profile_stem [--b3-batch 16] [--b2-batch 32]
+                                            [--split-source PATH]
+
+B3 (``ops.stem_train``, ``csrc/stem_train.cu``): one forward + backward at
+``--b3-batch`` under ``torch.profiler``, over distinct inputs, and the
+device time of every launch by kernel name (conv1_stats, stage2<0>, pool,
+route, stage2<1>, dw2, dw1, colsum) and of the PyTorch glue between them
+(the per-channel vectors, casts, the weight layouts), each named launch
+beside its own bound: the operations of its contraction at the bf16 peak
+against the bytes of its inputs read once and outputs written once
+(:func:`b3_bounds`).
+
+B2 (``ops.stem``, ``csrc/stem.cu``): the kernel at ``--b2-batch`` by CUDA
+events and by profiler device time.  With ``--split-source`` (a ``stem.cu``
+of the earlier WMMA design, for example from a ``git archive`` of an older
+commit) it also builds that source three ways and times each variant by
+CUDA events and by device time: whole; conv1_1 alone (staging + conv1_1
+into the y1 tile, nothing after); and conv1_2 with the epilogue on a y1
+tile left as it is in shared memory (staging, no conv1_1).  The variants cut the source
+at its section comments (:data:`SPLIT_MARKERS`).
+
+Prints the card (nvidia-smi name and power limit) first.  Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import hashlib
+import re
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from ssdx_torch.ops import _build
+from ssdx_torch.ops import stem as stem_ops
+from ssdx_torch.ops import stem_train as stem_train_ops
+from ssdx_torch.tools.bench_int8_mm import WINDOW_PAD_S, cuda_ms, device_ms, fmt
+
+PEAK_BF16 = 989e12  # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12
+H, C = 300, 64
+
+
+def b3_bounds(B: int) -> dict:
+    """Least device ms of each named B3 launch at batch ``B``: (ms, by)."""
+    P = B * H * H
+    act = P * C * 2          # one [B,300,300,64] bf16 map
+    pooled = act // 4
+    img = P * 3 * 2
+    k27, k576 = 2 * P * C * 27, 2 * P * C * 576
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+    return {
+        "conv1_stats": bound(k27, img + act),
+        "stage2<0>": bound(k576, 2 * act),
+        "pool": bound(0, act + pooled),
+        "route": bound(0, 2 * act + pooled),
+        "stage2<1>": bound(k576, 4 * act),
+        "dw2": bound(k576, 3 * act),
+        "dw1": bound(k27, img + 2 * act),
+    }
+
+
+def b3_name(kernel_name: str) -> str:
+    """The launch a device record belongs to: a B3 kernel by its short name
+    (``stage2_kernel<1>`` -> ``stage2<1>``), anything else "glue"."""
+    m = re.search(r"(conv1_stats|stage2|pool|route|dw2|dw1|colsum)_kernel(<\d>)?", kernel_name)
+    if m is None:
+        return "glue"
+    return m.group(1) + (m.group(2) or "")
+
+
+def stem_train_case(B: int, seed: int = 4, n: int = 3):
+    """``n`` distinct (x, dp) pairs and the parameters of a B3 fwd+bwd."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, std, mean=0.0: torch.randn(*s, generator=g, device=dev) * std + mean
+    w = (r(64, 3, 3, 3, std=0.15), r(64, std=0.3), r(64, std=0.1, mean=1.0), r(64, std=0.1),
+         r(64, 64, 3, 3, std=0.08), r(64, std=0.3), r(64, std=0.1, mean=1.0), r(64, std=0.1))
+    ps = [t.requires_grad_() for t in w]
+    ins = [(r(B, H, H, 3, std=1.0).to(torch.bfloat16),
+            r(B, H // 2, H // 2, C, std=1.0).to(torch.bfloat16)) for _ in range(n)]
+
+    def run(x, dp):
+        for p in ps:
+            p.grad = None
+        torch.autograd.backward(stem_train_ops.stem_train(x, *ps)[0], dp)
+
+    return run, ins
+
+
+def b3_split(B: int = 16, iters: int = 10, tries: int = 3, log=print) -> dict | None:
+    """Device ms per fwd+bwd of each B3 launch and of the glue, from one
+    profiler window of ``iters`` calls; None if every window lost records
+    (each launch must appear the same number of times in every call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run, ins = stem_train_case(B)
+    for x in ins:
+        run(*x)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)
+            for i in range(iters):
+                run(*ins[i % len(ins)])
+            torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us, cnt = collections.defaultdict(float), collections.Counter()
+        for e in events:
+            k = b3_name(e.name)
+            us[k] += e.time_range.elapsed_us()
+            cnt[k] += 1
+        if cnt and all(c % iters == 0 for k, c in cnt.items() if k != "glue"):
+            break
+    else:
+        log("B3 split: not measured (the profiler lost records in every window)")
+        return None
+    bounds = b3_bounds(B)
+    total = sum(us.values()) / iters / 1e3
+    order = ["conv1_stats", "stage2<0>", "pool", "route", "stage2<1>", "dw2", "dw1", "colsum",
+             "glue"]
+    split = {}
+    log(f"B3 split, bs={B}, device ms per forward + backward ({total:.4f} ms in all):")
+    for k in order + sorted(set(us) - set(order)):
+        if k not in us:
+            continue
+        ms = us[k] / iters / 1e3
+        b = bounds.get(k)
+        split[k] = {"ms": ms, "launches": cnt[k] // iters if k != "glue" else cnt[k] / iters,
+                    "bound_ms": None if b is None else b[0]}
+        tail = "" if b is None else f", bound {b[0]:.4f} ms by {b[1]}"
+        log(f"  {k:12s} {ms:8.4f} ms  {100 * ms / total:5.1f} %  x{split[k]['launches']:g}{tail}")
+    split["total_ms"] = total
+    return split
+
+
+def b2_times(B: int = 32, log=print) -> dict:
+    """B2 at batch ``B``: ms by CUDA events and by profiler device time."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std
+    w = (r(64, 3, 3, 3, std=0.15), r(64, std=0.3), r(64, 64, 3, 3, std=0.08), r(64, std=0.3))
+    xs = [(r(B, H, H, 3, std=1.0).to(torch.bfloat16),) for _ in range(3)]
+    fn = lambda x: stem_ops.stem_conv_pool(x, *w)
+    ev = cuda_ms(fn, xs, iters=20)
+    dv = device_ms(fn, xs, kernel="stem_kernel")
+    log(f"B2 bs={B}: {ev:.4f} ms by events, {fmt(dv, '.4f')} ms on the device")
+    return {"events_ms": ev, "device_ms": dv}
+
+
+# --------------------------------------------------- variants of the old B2
+
+# Section comments of the WMMA stem.cu at which the variants cut it.
+SPLIT_MARKERS = ("  // ---- conv1_1 + ReLU -> y1 tile", "  // ---- conv1_2: implicit GEMM",
+                 "\n}\n\n}  // namespace")
+# Keeps the y1 tile observable when nothing after conv1_1 reads it.
+_SINK = ("  if (tid == 0 && __bfloat162float(y1s[blockIdx.x]) == 1234.5f)"
+         " out[blockIdx.x] = y1s[1];\n")
+
+
+def split_variants(text: str) -> dict[str, str]:
+    """The whole kernel, conv1_1 alone, and conv1_2 + epilogue alone."""
+    a, b, c = (text.index(m) for m in SPLIT_MARKERS)
+    if not a < b < c:
+        raise ValueError("the source's sections are not in the expected order")
+    return {
+        "whole": text,
+        "conv1_1": text[:b] + _SINK + text[c:],
+        "conv1_2+epilogue": text[:a] + text[b:],
+    }
+
+
+def _build_variant(name: str, text: str) -> Path:
+    out_dir = _build.BUILD_DIR / "stem_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    h = hashlib.sha256(text.encode()).hexdigest()[:12]
+    src = out_dir / f"{re.sub(r'[^a-z0-9_]', '_', name)}-{h}.cu"
+    src.write_text(text)
+    return src
+
+
+def b2_split(source: str, B: int = 32, log=print) -> dict:
+    """(events ms, device ms) of each variant of ``source`` (a WMMA-design stem.cu), all
+    built at once with the flags of ``ops._build``."""
+    srcs = {k: _build_variant(k, v) for k, v in split_variants(Path(source).read_text()).items()}
+    procs = {}
+    for k, src in srcs.items():
+        lib = src.with_suffix(".so")
+        cmd = [_build._nvcc(), *_build._flags("stem"), "-o", str(lib), str(src)]
+        procs[k] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), lib)
+    libs = {}
+    for k, (p, lib) in procs.items():
+        outp, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {k} variant:\n{outp}")
+        fn = ctypes.CDLL(str(lib)).ssdx_stem_forward
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[k] = fn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std
+    bf = torch.bfloat16
+    w1 = (r(64, 3, 3, 3, std=0.15).to(bf).float().permute(2, 3, 1, 0).contiguous())
+    b1 = r(64, std=0.3).to(bf).float()
+    w2 = r(64, 64, 3, 3, std=0.08).to(bf).permute(2, 3, 1, 0).contiguous()
+    b2 = r(64, std=0.3)
+    xs = [(r(B, H, H, 3, std=1.0).to(bf),) for _ in range(3)]
+    out = torch.empty((B, H // 2, H // 2, C), dtype=bf, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for k, fn in libs.items():
+        call = lambda x, fn=fn: fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                   b2.data_ptr(), out.data_ptr(), B, stream)
+        assert call(xs[0][0]) == 0, k
+        res[k] = (cuda_ms(call, xs, iters=20), device_ms(call, xs, kernel="stem_kernel"))
+    log(f"B2 split of {source}, bs={B}, ms by events / on the device: " +
+        ", ".join(f"{k} {ev:.4f} / {fmt(dv, '.4f')}" for k, (ev, dv) in res.items()))
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--b3-batch", type=int, default=16)
+    ap.add_argument("--b2-batch", type=int, default=32)
+    ap.add_argument("--split-source", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_stem: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    b3_split(args.b3_batch)
+    b2_times(args.b2_batch)
+    if args.split_source:
+        b2_split(args.split_source, args.b2_batch)
+
+
+if __name__ == "__main__":
+    main()
