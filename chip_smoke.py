@@ -11,9 +11,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      against its plain PyTorch version at B = 1, 3, 5, 8 and 32, 300x300,
      bf16 (tools/check_stem.py): max |k - r| / (|r| + 1) < 0.05, and every
      image bit-identical at every B;
-  4. the NMS kernel (csrc/nms.cu) against its plain version at K=400 and
-     K=1600, class-aware and agnostic, thresholds 0.3 and 0.5: keep masks
-     equal bit for bit;
+  4. the NMS kernel (csrc/nms.cu) against its plain version
+     (tools/check_nms.py): B = 32 and 1, K = 1, 64, 65, 400, 1600 and 8192,
+     clustered and grid candidates, class-aware and agnostic, thresholds 0,
+     0.3, 0.5, -0.2 and one that pairs reach exactly: keep masks equal bit
+     for bit;
   5. the main path: create_detector() (BN-folded bf16 SSD300 with the stem
      kernel, bundled demo weights) and predict_pil on the three example
      scenes, with the kernels' launch counters set to 0 just before and read
@@ -23,7 +25,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   7. timing with CUDA events after warm-up, on distinct inputs: bs=32
      predict_batched images/s, and each kernel beside its plain version,
      its library yardstick and its bound; the stem kernel also by profiler
-     device time;
+     device time; the NMS kernel's device time by launch at K=400 and 1600
+     (tools/profile_split.py) beside the split before its redesign;
   8. the train-mode stem kernels (csrc/stem_train.cu) against their plain
      version, forward and backward at bs=2 and bs=16 in bf16
      (tools/check_stem.py): p within max |k - r| / (|r| + 1) < 0.05, each
@@ -79,10 +82,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bf16 at [16,300,300,64], at an odd shape and on an input with forced
      ties: forward and dy equal bit for bit;
  15. the fused BN + ReLU + pool kernels (csrc/bn_relu_pool.cu) against their
-     plain version, forward and backward with non-zero cotangents for mean
-     and var, in bf16 at [16,300,300,64], [16,150,150,128], [16,75,75,256]
-     with ceil=True and on a tie / ReLU-boundary input with tie_split on and
-     off: p within one bf16 step, mean and var within 1e-5 of their largest
+     plain version (tools/check_brp.py), forward and backward with non-zero
+     cotangents for mean and var, in bf16 and f32, tie_split on and off, at
+     [16,300,300,64], [16,150,150,128], [16,75,75,256] with ceil=True, a
+     tie / ReLU-boundary input (4,61,59,64), and C = 2048 and C = 24: p
+     within one bf16 step, mean and var within 1e-5 of their largest
      magnitude, dx within 0.02 L2-relative, dgamma and dbeta within 1e-3,
      and two runs of the kernels identical bit for bit;
  16. the kernels' path: the experiment tool (tools/stem_train_experiments.py)
@@ -90,7 +94,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and stem at bs=16, the launch counters set to 0 just before and read
      just after; then each kernel beside its plain version, its library
      yardstick (F.max_pool2d; F.batch_norm + relu + max_pool2d) and its
-     bound;
+     bound; and B6's device time by launch at the four shapes of phase 15
+     (tools/profile_split.py, traced right after phase 11, where the
+     profiler keeps its records) beside the split before its redesign;
  17. the data path: augment_batch and preprocess_batch on the card at bs=16
      from 512x512 uint8 scenes (finite, boxes in [0,1], valid boxes keep
      their labels, ms per batch), then train.run.train_on over a SynthDrive
@@ -170,7 +176,10 @@ from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.tools import check_gemm
 from ssdx_torch.tools import check_stem as stem_check
 from ssdx_torch.tools import profile_stem
+from ssdx_torch.tools import check_brp as brp_check
 from ssdx_torch.tools import check_int8_conv as int8_check
+from ssdx_torch.tools import check_nms as nms_check
+from ssdx_torch.tools import profile_split
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
 from ssdx_torch.train.checkpoint import load_checkpoint
@@ -184,7 +193,19 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-NMS_OPS_PER_PAIR = 31  # float32 operations of one DIoU + compare (csrc/nms.cu)
+# Device ms by launch of the kernels before this design, on an NVIDIA H100 80GB
+# HBM3 at 700 W (tools/profile_split.py on commit fd70a8a; PERF.md)
+BEFORE_NMS_SPLIT = {400: "scan 0.0768 + sup 0.0258 = 0.1026 ms",
+                    1600: "scan 0.2215 + sup 0.1685 = 0.3900 ms"}
+BEFORE_BRP_SPLIT = {
+    (16, 300, 300, 64): "stats 0.0806, stats_finalize 0.0159, apply 0.0846, reduce 0.2038, "
+                        "reduce_finalize 0.0142, dx 0.2351 = 0.6342 ms",
+    (16, 150, 150, 128): "stats 0.0486, stats_finalize 0.0113, apply 0.0421, reduce 0.1131, "
+                         "reduce_finalize 0.0137, dx 0.1211 = 0.3498 ms",
+    (16, 75, 75, 256): "stats 0.0318, stats_finalize 0.0112, apply 0.0253, reduce 0.0698, "
+                       "reduce_finalize 0.0133, dx 0.0685 = 0.2199 ms",
+    (4, 61, 59, 64): "stats 0.0064, stats_finalize 0.0041, apply 0.0027, reduce 0.0064, "
+                     "reduce_finalize 0.0026, dx 0.0047 = 0.0268 ms"}
 SERVE_KW = dict(score_thresh=0.2, nms_thresh=0.3, max_per_img=100)
 BS = 32
 
@@ -227,43 +248,10 @@ def check_stem(dev) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def nms_inputs(dev, B, K, seed, class_aware):
-    """Score-sorted, class-offset candidates clustered around a few centres
-    (long suppression chains), laid out as batched_nms_mask hands them to
-    the core."""
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(30, 270, (B, 12, 2))
-    pick = rng.integers(0, 12, (B, K))
-    lo = centers[np.arange(B)[:, None], pick] + rng.normal(0, 6, (B, K, 2))
-    boxes = np.concatenate([lo, lo + rng.uniform(15, 50, (B, K, 2))], -1)
-    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
-    scores = torch.as_tensor(rng.uniform(0.01, 1.0, (B, K)), dtype=torch.float32, device=dev)
-    labels = torch.as_tensor(rng.integers(0, 5, (B, K)), device=dev)
-    valid = torch.ones((B, K), dtype=torch.bool, device=dev)
-    valid[:, -7:] = False
-    if class_aware:
-        boxes = boxes + labels.float()[..., None] * 4096.0
-    neg = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
-    order = torch.argsort(-neg, dim=1, stable=True)
-    return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
-            torch.gather(valid, 1, order))
-
-
 def check_nms(dev) -> dict:
-    worst = 0
-    for K in (400, 1600):
-        for class_aware in (True, False):
-            for thresh in (0.3, 0.5):
-                b, v = nms_inputs(dev, BS, K, seed=K + class_aware, class_aware=class_aware)
-                got = nms_ops.nms_core_sorted(b, v, thresh)
-                ref = nms_ops.nms_core_sorted_ref(b, v, thresh)
-                torch.cuda.synchronize()
-                diff = int((got != ref).sum())
-                log(f"nms kernel vs plain: K={K} class_aware={class_aware} thresh={thresh}: "
-                    f"{int(got.sum())} kept of {BS * K}, {diff} mismatches")
-                assert diff == 0, diff
-                worst = max(worst, diff)
-    return {"max_abs_err": float(worst)}
+    """tools/check_nms.py: every case bit for bit, or it raises."""
+    nms_check.check(dev, log=log)
+    return {"max_abs_err": 0.0}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -406,15 +394,10 @@ def timing(dev, det, launches, errs):
     # nms at the serving (K=400) and eval (K=1600) candidate counts
     nms_row = None
     for K in (400, 1600):
-        ins = [nms_inputs(dev, BS, K, seed=K + s, class_aware=True) for s in range(4)]
+        ins = [nms_check.nms_inputs(dev, BS, K, seed=K + s, class_aware=True) for s in range(4)]
         k_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted(*a, 0.3), ins)
         p_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted_ref(*a, 0.3), ins, iters=4, warmup=1)
-        b, v = ins[0]
-        n_valid = v.sum(dim=1).tolist()
-        pairs = sum(n * (K - 1) - n * (n - 1) // 2 for n in n_valid)  # i valid, j > i
-        nb = BS * K * (16 + 1) + BS * K
-        bound_ops, bound_bytes = pairs * NMS_OPS_PER_PAIR / PEAK_F32, nb / PEAK_BYTES
-        bound = max(bound_ops, bound_bytes) * 1e3
+        bound, bound_by = profile_split.nms_bound(ins[0][1])
         log(f"nms kernel bs={BS} K={K}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
             f"{bound:.5f} ms, library none (no single PyTorch call for greedy NMS), "
             f"1 launch per postprocess")
@@ -423,10 +406,14 @@ def timing(dev, det, launches, errs):
                 "name": "nms_core_sorted", "route": "cuda", "source": "ssdx_torch/csrc/nms.cu",
                 "replaces": "ssdx/ops/pallas_nms.py:157", "launches": launches["nms"],
                 "max_abs_err": errs["nms"]["max_abs_err"], "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": bound,
-                "bound_by": "operations" if bound_ops > bound_bytes else "bytes",
-                "library_ms": None,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             }
+    # device time by launch, beside the split of the design before the shared-memory scan
+    for res in profile_split.nms_split(log=log):
+        log(f"  before (one-warp scan, full W x W grid; commit fd70a8a): "
+            f"{BEFORE_NMS_SPLIT[res['K']]}")
+        if res["K"] == 400:
+            nms_row["device_ms"] = res["device_ms"]
     kernels.append(nms_row)
     return kernels
 
@@ -936,16 +923,6 @@ def int8_probe() -> dict:
 POOL_SHAPE = (TRAIN_BS, 300, 300, 64)
 
 
-def grads_of(fn, inputs, outs_cot):
-    """One forward and backward of fn(*inputs) with the cotangents
-    ``outs_cot``; returns (outputs, gradients of the inputs)."""
-    xs = [t.detach().clone().requires_grad_() for t in inputs]
-    out = fn(*xs)
-    out = out if isinstance(out, tuple) else (out,)
-    torch.autograd.backward(out, outs_cot)
-    return [o.detach() for o in out], [x.grad for x in xs]
-
-
 def pool_cases(dev):
     """(name, y, g): the tool's shape, an odd shape (the last row and column
     belong to no window), and forced ties: half-step values, with every
@@ -965,8 +942,8 @@ def pool_cases(dev):
 def check_pool(dev) -> dict:
     worst = 0.0
     for name, y, g in pool_cases(dev):
-        (kp,), (kdy,) = grads_of(pool_ops.max_pool_2x2, [y], [g])
-        (rp,), (rdy,) = grads_of(pool_ops.max_pool_2x2_ref, [y], [g])
+        (kp,), (kdy,) = brp_check.grads_of(pool_ops.max_pool_2x2, [y], [g])
+        (rp,), (rdy,) = brp_check.grads_of(pool_ops.max_pool_2x2_ref, [y], [g])
         torch.cuda.synchronize()
         assert kp.shape == rp.shape and kdy.shape == y.shape and kp.dtype == torch.bfloat16
         bad_p, bad_dy = int((kp != rp).sum()), int((kdy != rdy).sum())
@@ -983,59 +960,11 @@ def check_pool(dev) -> dict:
 
 # --------------------------------------------------------------- phase 15
 
-# (shape, ceil): the tool's shape, the next two pooled stages of the network
-# (the third with the odd 75 -> 38 ceil pool), and a tie / ReLU-boundary input
-BRP_CASES = ((POOL_SHAPE, False), ((TRAIN_BS, 150, 150, 128), False),
-             ((TRAIN_BS, 75, 75, 256), True), ((4, 61, 59, 64), False))
-BF16_STEP = 2.0 ** -7  # largest relative gap between neighbouring bfloat16 values
-
-
-def brp_inputs(dev, shape, ceil, seed, ties=False):
-    """x, gamma, beta and the three cotangents (mean's and var's non-zero)."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=dev) * std + mean
-    B, H, W, C = shape
-    x = r(*shape)
-    if ties:  # half-step values: tied maxima, and windows that the ReLU zeroes whole
-        x = (x * 2).round() / 2
-    Hp, Wp = ((H + 1) // 2, (W + 1) // 2) if ceil else (H // 2, W // 2)
-    return ([x.to(torch.bfloat16), r(C, std=0.2, mean=1.0), r(C, std=0.2)],
-            [r(B, Hp, Wp, C).to(torch.bfloat16), r(C), r(C)])
-
-
 def check_brp(dev) -> dict:
-    worst = 0.0
-    for i, (shape, ceil) in enumerate(BRP_CASES):
-        ties = i == len(BRP_CASES) - 1
-        for tie_split in ((True, False) if ties else (True,)):
-            ins, cots = brp_inputs(dev, shape, ceil, seed=15 + i, ties=ties)
-            fn = lambda x, g, b: brp_ops.bn_relu_pool(x, g, b, 1e-5, ceil, tie_split)
-            ref = lambda x, g, b: brp_ops.bn_relu_pool_ref(x, g, b, 1e-5, ceil, tie_split)
-            kout, kgrad = grads_of(fn, ins, cots)
-            kout2, kgrad2 = grads_of(fn, ins, cots)
-            rout, rgrad = grads_of(ref, ins, cots)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(kout + kgrad, kout2 + kgrad2))
-            kp, rp = kout[0].float(), rout[0].float()
-            assert kout[0].shape == rout[0].shape and kout[0].dtype == torch.bfloat16
-            gap = (kp - rp).abs()
-            p_ok = bool((gap <= BF16_STEP * torch.maximum(kp.abs(), rp.abs()) + 1e-6).all())
-            worst = max(worst, gap.max().item())
-            stat = [((k - r).abs().max() / r.abs().max()).item()
-                    for k, r in zip(kout[1:], rout[1:])]
-            dx = ((kgrad[0].float() - rgrad[0].float()).norm() / rgrad[0].float().norm()).item()
-            dgb = [((k - r).abs().max() / r.abs().max()).item()
-                   for k, r in zip(kgrad[1:], rgrad[1:])]
-            log(f"bn_relu_pool kernels vs plain, {tuple(shape)} bf16 ceil={ceil} "
-                f"tie_split={tie_split}{' (ties, ReLU boundary)' if ties else ''}: p "
-                f"{int((gap > 0).sum())} of {gap.numel()} differ, max |k-r| {gap.max().item():.3e} "
-                f"(limit one bf16 step); mean {stat[0]:.2e}, var {stat[1]:.2e} (limit 1e-5 of "
-                f"max); dx |k-r|/|r| {dx:.3e} (limit 0.02); dgamma {dgb[0]:.2e}, dbeta "
-                f"{dgb[1]:.2e} (limit 1e-3 of max); two runs identical: {same}")
-            assert p_ok and torch.isfinite(kp).all(), "p"
-            assert max(stat) < 1e-5 and dx < 0.02 and max(dgb) < 1e-3 and same
-            assert all(torch.isfinite(g.float()).all() for g in kgrad)
-    return {"max_abs_err": worst}
+    """tools/check_brp.py: BRP_CASES and its edge cases in bf16 and f32, tie_split
+    on and off, within phase 15's limits and two runs bit for bit, or it raises."""
+    worst = brp_check.check(dev, log=log)
+    return {"max_abs_err": worst[torch.bfloat16]}
 
 # --------------------------------------------------------------- phase 16
 
@@ -1078,7 +1007,7 @@ def backward_only(fn, inputs, cots, needs_grad=(0,)):
                                          retain_graph=True)
 
 
-def pool_brp_timing(dev, launches, errs) -> list:
+def pool_brp_timing(dev, launches, errs, brp_split, brp_lines) -> list:
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(16)
     r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=dev) * std + mean
@@ -1160,6 +1089,19 @@ def pool_brp_timing(dev, launches, errs) -> list:
         "library_ms": t["library"]["both"], "bound_four_passes_ms": passes,
         "forward_ms": k["fwd"], "backward_ms": k["bwd"],
         "library_forward_ms": t["library"]["fwd"], "library_backward_ms": t["library"]["bwd"]})
+    # device time by launch at the four BRP_CASES shapes (traced right after phase 11, where
+    # the profiler keeps its records), beside the split before the pipeline
+    for line in brp_lines:
+        log(line)
+    for res in brp_split:
+        log(f"  before {tuple(res['shape'])} (four-kernel design; commit fd70a8a): "
+            f"{BEFORE_BRP_SPLIT[tuple(res['shape'])]}")
+        if tuple(res["shape"]) == POOL_SHAPE and res["split"] is not None:
+            sp = res["split"]
+            part = lambda names: sum(sp[n][0] for n in names if n in sp)
+            rows[-1].update(device_ms=res["device_ms"],
+                            forward_device_ms=part(("stats", "stats_finalize", "apply")),
+                            backward_device_ms=part(("reduce", "reduce_finalize", "dx")))
     return rows
 
 
@@ -1651,6 +1593,8 @@ def main() -> int:
     layer_rows = int8_layer_timing(dev)
     b3_split = []  # phase 10's split of the stem_train launches, printed there
     profile_stem.b3_split(TRAIN_BS, log=b3_split.append)
+    brp_lines = []  # phase 16's split of the bn_relu_pool launches, printed there
+    brp_split = profile_split.brp_split(log=brp_lines.append)
     launches8 = int8_path(det, det8)
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs, layer_rows)
@@ -1662,7 +1606,7 @@ def main() -> int:
     kernels.append(train_timing(dev, train["launches"], errs["stem_train"], b3_split))
     errs["pool"], errs["brp"] = check_pool(dev), check_brp(dev)
     tool = tool_path()
-    kernels += pool_brp_timing(dev, tool["launches"], errs)
+    kernels += pool_brp_timing(dev, tool["launches"], errs, brp_split, brp_lines)
     check_augment(dev)
     data_path(dev)
     errs.update(check_repro(dev))

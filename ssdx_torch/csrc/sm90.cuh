@@ -1,8 +1,9 @@
 // What the Hopper (sm_90a) kernels of the port share: the stage ring of a
-// block tile, the mbarrier, TMA and wgmma helpers, the consumers'
+// block tile, the mbarrier, TMA, bulk-copy and wgmma helpers, the consumers'
 // main loop, and the host's tensor-map encode.  Included by gemm_sm90.cu
-// (the bare matmuls S1, S2b) and int8_conv.cu (the int8 convolutions B4a,
-// B4b); each is built into a library of its own.
+// (the bare matmuls S1, S2b), int8_conv.cu (the int8 convolutions B4a,
+// B4b), nms.cu (B1's scan) and bn_relu_pool.cu (B6's pipeline); each is
+// built into a library of its own.
 //
 // The main loop (consume): a block computes a BM x BN output tile with BM / 64
 // consumer warpgroups of 64 rows each and one loader warpgroup.  K is walked
@@ -86,6 +87,26 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Copy `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Copy `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from shared memory to device memory, in this thread's current
+// bulk group (cp.async.bulk.commit_group closes it).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // Store one box of the map (64 rows x 128 bytes in the port's kernels) from

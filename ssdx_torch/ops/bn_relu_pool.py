@@ -3,9 +3,11 @@
 ``bn_relu_pool(x, gamma, beta)`` returns ``(p, mean, var)``: the pooled map
 and the biased batch statistics for the caller's running-average update.
 On a CUDA tensor it runs :class:`BnReluPool`, whose forward and backward
-launch the hand-written kernels of ``csrc/bn_relu_pool.cu`` (four passes and
-two small kernels that add their partial sums in a fixed order and do the
-per-channel arithmetic; the source's header gives the bound and the design).
+launch the hand-written kernels of ``csrc/bn_relu_pool.cu`` (four passes of
+one persistent kernel that streams tiles of x through shared memory by bulk
+copies, and two small kernels that add their partial sums in a fixed order
+and do the per-channel arithmetic; the source's header gives the bound and
+the design, :func:`tiles` the tile geometry).
 On a CPU tensor it runs :class:`BnReluPoolRef`, the plain PyTorch version,
 which is also the kernels' oracle on the card.  It replaces the JAX package's
 ``ssdx/ops/fused_bn_pool.py::bn_relu_pool`` and its Pallas passes; that
@@ -41,16 +43,18 @@ import ctypes
 
 import torch
 
-from .pool import _SMS, _THREADS, _DTYPES, _aligned, _compute_dtype, bind, check_nhwc, launch
+from .pool import _DTYPES, _aligned, _compute_dtype, bind, check_nhwc, launch, sm_count
 from .pool import route, unwindows, windows
 
-__all__ = ["bn_relu_pool", "bn_relu_pool_ref", "BnReluPool", "BnReluPoolRef", "launches",
-           "launches_bwd"]
+__all__ = ["bn_relu_pool", "bn_relu_pool_ref", "BnReluPool", "BnReluPoolRef", "tiles",
+           "launches", "launches_bwd"]
 
 launches = 0      # forwards of bn_relu_pool that launched stats + apply
 launches_bwd = 0  # backwards that launched reduce + dx
 
 _MAX_C = 2048
+_CONSUMERS = 256   # csrc/bn_relu_pool.cu kConsumers: threads that read the tiles
+_BLOCKS_PER_SM = 2  # the pipeline kernel's __launch_bounds__
 _lib = None
 
 
@@ -126,13 +130,14 @@ def _kernel():
     global _lib
     if _lib is None:
         P, I, Fl, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        Geo = ctypes.POINTER(ctypes.c_int)
         _lib = bind("bn_relu_pool", {
-            "ssdx_brp_stats": [P, P, I, I, I, I, S],
+            "ssdx_brp_stats": [P, P, Geo, I, I, S],
             "ssdx_brp_stats_finalize": [P, I, I, Fl, Fl, P, P, P, P, P, S],
-            "ssdx_brp_apply": [P, P, P, I, I, I, I, I, I, I, I, S],
-            "ssdx_brp_reduce": [P, P, P, P, I, I, I, I, I, I, I, I, I, S],
+            "ssdx_brp_apply": [P, P, P, Geo, I, I, S],
+            "ssdx_brp_reduce": [P, P, P, P, Geo, I, I, I, S],
             "ssdx_brp_reduce_finalize": [P, I, I, Fl, P, P, P, P, S],
-            "ssdx_brp_dx": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, S],
+            "ssdx_brp_dx": [P, P, P, P, P, Geo, I, I, I, S],
         })
     return _lib
 
@@ -141,14 +146,46 @@ def _launch(name, *args):
     launch(_kernel(), name, *args)
 
 
-def _slot_grid(items: int, C: int) -> int:
-    """Blocks for a kernel whose block takes ``256 // (C/8)`` items a step."""
-    slots = _THREADS // (C // 8)
-    return max(1, min(-(-items // slots), 8 * _SMS))
-
-
 def _pooled(H, W, ceil):
     return ((H + 1) // 2, (W + 1) // 2) if ceil else (H // 2, W // 2)
+
+
+def tiles(B: int, H: int, W: int, C: int, ceil: bool, mode: str) -> dict:
+    """The tile geometry of one pass of the pipeline kernel.
+
+    A band is the input rows 2P and 2P + 1 of one image; a tile is ``tw``
+    columns of a band (``nq`` tiles a band, the last one ragged), in which
+    consumer thread (slot, cg) takes window ``slot`` and channels 8*cg ..
+    8*cg + 7: ``G = C/8`` channel groups, ``slots = 256 // G`` windows, so
+    a tile row holds ``tw * C <= 4096`` elements.  stats and dx walk all
+    (H+1)/2 bands of an image (every pixel); apply and reduce the Hp pooled
+    ones, none where no window is pooled.  stats and reduce write one partial
+    row per band.
+    """
+    if mode not in ("stats", "apply", "reduce", "dx"):
+        raise ValueError(mode)
+    Hp, Wp = _pooled(H, W, ceil)
+    G = C // 8
+    slots = _CONSUMERS // G
+    tw = 2 * slots
+    if mode in ("stats", "dx"):
+        bands = (H + 1) // 2
+    else:
+        bands = Hp if Wp > 0 else 0
+    return dict(B=B, H=H, W=W, C=C, Hp=Hp, Wp=Wp, G=G, slots=slots, tw=tw,
+                nq=-(-W // tw), bands=bands, nbands=B * bands)
+
+
+_GEO = ("B", "H", "W", "C", "Hp", "Wp", "G", "slots", "tw", "nq", "bands", "nbands")
+
+
+def _geo(t: dict):
+    return (ctypes.c_int * len(_GEO))(*(t[k] for k in _GEO))
+
+
+def _grid(t: dict, dev) -> int:
+    """Persistent blocks: two an SM, never more than there are bands."""
+    return min(t["nbands"], _BLOCKS_PER_SM * sm_count(dev))
 
 
 def _kernel_forward(x, gamma, beta, eps, ceil):
@@ -158,18 +195,18 @@ def _kernel_forward(x, gamma, beta, eps, ceil):
     B, H, W, C = x.shape
     n = B * H * W
     dt = _DTYPES[x.dtype]
-    grid = _slot_grid(n, C)
-    part = torch.empty((grid, 2 * C), dtype=f32, device=dev)
-    _launch("ssdx_brp_stats", x, part, n, C, dt, grid)
+    t = tiles(B, H, W, C, ceil, "stats")
+    part = torch.empty((t["nbands"], 2 * C), dtype=f32, device=dev)
+    _launch("ssdx_brp_stats", x, part, _geo(t), dt, _grid(t, dev))
     mean, var = torch.empty(C, dtype=f32, device=dev), torch.empty(C, dtype=f32, device=dev)
     vec = torch.empty((4, C), dtype=f32, device=dev)
-    _launch("ssdx_brp_stats_finalize", part, grid, C, float(n), float(eps), gamma, beta, mean, var,
-            vec)
+    _launch("ssdx_brp_stats_finalize", part, t["nbands"], C, float(n), float(eps), gamma, beta,
+            mean, var, vec)
     Hp, Wp = _pooled(H, W, ceil)
     p = torch.empty((B, Hp, Wp, C), dtype=x.dtype, device=dev)
-    items = max(p.numel() // 8, 1)
-    _launch("ssdx_brp_apply", x, vec, p, B, H, W, C, Hp, Wp, dt,
-            max(1, min(-(-items // _THREADS), 32 * _SMS)))
+    t = tiles(B, H, W, C, ceil, "apply")
+    if t["nbands"]:
+        _launch("ssdx_brp_apply", x, vec, p, _geo(t), dt, _grid(t, dev))
     return p, mean, var, vec
 
 
@@ -179,18 +216,18 @@ def _kernel_backward(x, vec, ceil, tie_split, gp, gmean, gvar):
     B, H, W, C = x.shape
     n = B * H * W
     dt = _DTYPES[x.dtype]
-    Hp, Wp = _pooled(H, W, ceil)
     g = _aligned(gp.to(x.dtype))
 
-    grid = _slot_grid(B * Hp * Wp, C)
-    part = torch.empty((grid, 2 * C), dtype=f32, device=dev)
-    _launch("ssdx_brp_reduce", x, g, vec, part, B, H, W, C, Hp, Wp, int(tie_split), dt, grid)
+    t = tiles(B, H, W, C, ceil, "reduce")
+    part = torch.empty((t["nbands"], 2 * C), dtype=f32, device=dev)
+    if t["nbands"]:
+        _launch("ssdx_brp_reduce", x, g, vec, part, _geo(t), int(tie_split), dt, _grid(t, dev))
     fin = torch.empty((4, C), dtype=f32, device=dev)  # s1, s2, A, B0
-    _launch("ssdx_brp_reduce_finalize", part, grid, C, float(n), vec,
+    _launch("ssdx_brp_reduce_finalize", part, t["nbands"], C, float(n), vec,
             gmean.to(f32).contiguous(), gvar.to(f32).contiguous(), fin)
     dx = torch.empty_like(x)
-    grid = _slot_grid(B * ((H + 1) // 2) * ((W + 1) // 2), C)
-    _launch("ssdx_brp_dx", x, g, vec, fin, dx, B, H, W, C, Hp, Wp, int(tie_split), dt, grid)
+    t = tiles(B, H, W, C, ceil, "dx")
+    _launch("ssdx_brp_dx", x, g, vec, fin, dx, _geo(t), int(tie_split), dt, _grid(t, dev))
     return dx, fin[1], fin[0]
 
 

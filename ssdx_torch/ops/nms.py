@@ -52,6 +52,8 @@ def _kernel():
                                       ctypes.c_void_p, ctypes.c_void_p]
         lib.ssdx_nms_keep.restype = ctypes.c_int
         lib.ssdx_nms_max_k.restype = ctypes.c_int
+        lib.ssdx_nms_scratch_words.argtypes = [ctypes.c_int]
+        lib.ssdx_nms_scratch_words.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -77,7 +79,7 @@ def nms_core_sorted(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> 
     if boxes.data_ptr() % 16:  # the kernel reads boxes as float4
         boxes = boxes.clone()
     v = valid.contiguous().view(torch.uint8)
-    sup = torch.empty((B, K, (K + 63) // 64), dtype=torch.int64, device=dev)
+    sup = torch.empty(B * lib.ssdx_nms_scratch_words(K), dtype=torch.int64, device=dev)
     keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         err = lib.ssdx_nms_keep(boxes.data_ptr(), v.data_ptr(), B, K, thresh,

@@ -33,7 +33,7 @@ __all__ = ["max_pool_2x2", "max_pool_2x2_ref", "MaxPool2x2", "MaxPool2x2Ref", "l
 launches = 0      # backwards of max_pool_2x2 that launched pool_bwd_kernel
 launches_fwd = 0  # forwards that launched pool_fwd_kernel
 
-_SMS = 132  # streaming multiprocessors of an H100 SXM
+_SMS: dict[int, int] = {}  # streaming multiprocessors per device index
 _THREADS = 256
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
@@ -146,8 +146,18 @@ def _launch(name, *args):
     launch(_kernel(), name, *args)
 
 
-def _grid(items: int) -> int:
-    return max(1, min(-(-items // _THREADS), 32 * _SMS))
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM, 114 on
+    an H100 PCIe), read once per device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _grid(items: int, device) -> int:
+    return max(1, min(-(-items // _THREADS), 32 * sm_count(device)))
 
 
 def _aligned(t):
@@ -165,7 +175,8 @@ class MaxPool2x2(torch.autograd.Function):
         y = _aligned(y.detach())
         B, H, W, C = y.shape
         p = torch.empty((B, H // 2, W // 2, C), dtype=y.dtype, device=y.device)
-        _launch("ssdx_pool_fwd", y, p, B, H, W, C, _DTYPES[y.dtype], _grid(p.numel() // 8))
+        _launch("ssdx_pool_fwd", y, p, B, H, W, C, _DTYPES[y.dtype],
+                _grid(p.numel() // 8, y.device))
         launches_fwd += 1
         ctx.save_for_backward(y, p)
         return p
@@ -178,7 +189,8 @@ class MaxPool2x2(torch.autograd.Function):
         g = _aligned(g.to(y.dtype))
         dy = torch.empty_like(y)
         items = B * ((H + 1) // 2) * ((W + 1) // 2) * (C // 8)
-        _launch("ssdx_pool_bwd", y, p, g, dy, B, H, W, C, _DTYPES[y.dtype], _grid(items))
+        _launch("ssdx_pool_bwd", y, p, g, dy, B, H, W, C, _DTYPES[y.dtype],
+                _grid(items, y.device))
         launches += 1
         return dy
 
