@@ -99,10 +99,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      profiler keeps its records) beside the split before its redesign;
  17. the data path: augment_batch and preprocess_batch on the card at bs=16
      from 512x512 uint8 scenes (finite, boxes in [0,1], valid boxes keep
-     their labels, ms per batch), then train.run.train_on over a SynthDrive
-     directory that data/synth.py writes (JPEG decode, bootstrap loader,
-     augmentation on the card, bf16 with the stem kernel) for 2 epochs of
-     bs=16 batches, and a second call that resumes from last.ckpt;
+     their labels, ms per batch), then the training command's entry point
+     (train.run.main --config, what python -m ssdx_torch.train.run runs,
+     in this process) for 1 epoch over a SynthDrive directory that
+     data/synth.py writes (the stratified group split in numpy, which
+     needs no scikit-learn: its train and val files printed and disjoint;
+     JPEG decode, bootstrap loader, augmentation on the card, bf16 with the
+     stem kernel, one launch a step), and train.run.run for a second epoch
+     that resumes from last.ckpt;
  18. the probe kernels of the data-parallel repro tool (ew: csrc/repro.cu;
      mm: the nn kernel of csrc/gemm_sm90.cu) against their plain versions:
      ew = tanh(x) * 1.5 on [256,256] f32 and on an odd length within 1e-6,
@@ -115,8 +119,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      kernels beside their plain version, library call and bound, by CUDA
      events and by profiler device time (measured for mm, or the run fails;
      for ew null when the profiler lost its records in three windows), with
-     the host cost of one call: these times are taken right after phase 11,
-     where the profiler has kept every record in every run;
+     the host cost of one call; the launch floor (an empty kernel, one block
+     of 256 threads, in turns with ew at [256,256] in one profiler window)
+     and ew at 2^22 and 2^26 values against their bounds, max(floor,
+     bytes) (tools/bench_ew.py): these times are taken right
+     after phase 11, where the profiler has kept every record in every run;
  19. the mesh path at one rank (the same NCCL group), full width:
      Detector(mesh=) on the three scenes equals phase 5's detections
      exactly; forward on B=5 equals the meshless forward; 3 bf16 bs=16
@@ -133,7 +140,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      time limit fails the run;
  21. eval: the C++ matcher is available and equals the numpy matcher on
      seeded boxes; python -m ssdx_torch.eval.run on the demo weights over a
-     SynthDrive test directory prints its mAP line (finite, above 0.5).
+     SynthDrive test directory prints its mAP line (finite, above 0.5);
+ 22. learning: tools/overfit_check.py at full width in bf16 on 32 images
+     of rectangles for 40 epochs, the train step with the stem kernel (80
+     launches, counted) and eval with the NMS kernel: final mAP@0.5 above
+     0.5 and above the first evaluation, or the run fails.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -172,6 +183,7 @@ from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
                                   create_detector, create_server)
+from ssdx_torch.tools import bench_ew
 from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.tools import check_gemm
 from ssdx_torch.tools import check_stem as stem_check
@@ -179,6 +191,7 @@ from ssdx_torch.tools import profile_stem
 from ssdx_torch.tools import check_brp as brp_check
 from ssdx_torch.tools import check_int8_conv as int8_check
 from ssdx_torch.tools import check_nms as nms_check
+from ssdx_torch.tools import overfit_check
 from ssdx_torch.tools import profile_split
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
@@ -206,6 +219,7 @@ BEFORE_BRP_SPLIT = {
                        "reduce_finalize 0.0133, dx 0.0685 = 0.2199 ms",
     (4, 61, 59, 64): "stats 0.0064, stats_finalize 0.0041, apply 0.0027, reduce 0.0064, "
                      "reduce_finalize 0.0026, dx 0.0047 = 0.0268 ms"}
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVE_KW = dict(score_thresh=0.2, nms_thresh=0.3, max_per_img=100)
 BS = 32
 
@@ -1107,7 +1121,7 @@ def pool_brp_timing(dev, launches, errs, brp_split, brp_lines) -> list:
 
 # --------------------------------------------------------------- phase 17
 
-SYNTH_IMAGES, SYNTH_VAL = 44, 12  # a SynthDrive directory: 32 train files, 12 val
+SYNTH_IMAGES = 44  # a SynthDrive directory, split 3:1 by the stratified group split
 
 
 def check_augment(dev):
@@ -1151,55 +1165,84 @@ def check_augment(dev):
 
 
 def data_path(dev) -> dict:
-    """SynthDrive on disk -> DetectionDataset -> loaders -> fit, twice (the
-    second call resumes).  The split is by file list: the stratified split of
-    train.run.run needs scikit-learn."""
+    """SynthDrive on disk -> the training command's entry point,
+    ``train.run.main(["--config", ...])`` (what ``python -m
+    ssdx_torch.train.run --config`` runs), for one epoch: the stratified
+    group split, the loaders, fit; then ``run`` of the same module for a
+    second epoch, resumed from last.ckpt.  Both run in this process: a new
+    process would add ~20 s of start-up (import torch, and torch._dynamo on
+    the optimizer's first use; tools/profile_train_command.py) that no check
+    reads."""
     import dataclasses
+    import importlib.util
     import tempfile
 
     from ssdx_torch.config import Config
     from ssdx_torch.data import synth
     from ssdx_torch.data.dataset import DetectionDataset
-    from ssdx_torch.train.run import train_on
+    from ssdx_torch.data.split import stratified_group_split
+    from ssdx_torch.train import run as run_mod
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         synth.generate_dataset(f"{d}/train", SYNTH_IMAGES, seed=17)
         full = DetectionDataset(f"{d}/train")
-        names = [p.name for p in full.paths]
-        val_ds = DetectionDataset(f"{d}/train", file_list=names[:SYNTH_VAL])
-        train_ds = DetectionDataset(f"{d}/train", file_list=names[SYNTH_VAL:])
         log(f"SynthDrive: {len(full)} scenes of 512x512 written and scanned in "
             f"{time.perf_counter() - t0:.1f} s, classes {full.classes}")
         cfg = Config()
         cfg = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, batch_size=TRAIN_BS, num_workers=4),
+            cfg, data=dataclasses.replace(cfg.data, train_dir=f"{d}/train", batch_size=TRAIN_BS,
+                                          num_workers=4),
             train=dataclasses.replace(cfg.train, save_dir=f"{d}/ckpt", warmup_epochs=0,
-                                      epochs=3))
+                                      epochs=2))
         assert cfg.train.bfloat16 and cfg.train.fused_stem is None and cfg.train.width_mult == 1.0
+        train_files, val_files = stratified_group_split(full.annotate_df, cfg.data.val_fraction,
+                                                        cfg.data.seed)
+        assert not set(train_files) & set(val_files)
+        assert len(train_files) + len(val_files) == len(full)
+        sklearn = importlib.util.find_spec("sklearn") is not None
+        log(f"stratified group split (numpy; scikit-learn importable: {sklearn}): "
+            f"{len(train_files)} train / {len(val_files)} val files, disjoint")
+        cfg.to_json(f"{d}/cfg.json")
+
+        t0 = time.perf_counter()
+        stem_train_ops.launches = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            run_mod.main(["--config", f"{d}/cfg.json", "--epochs", "1"])
+        torch.cuda.synchronize()
+        first_launches = stem_train_ops.launches
+        out = printed.getvalue().splitlines()
+        for line in out:
+            log(" ", line)
+        assert f"dataset: {len(train_files)} train / {len(val_files)} val images, classes=" \
+            f"{full.classes}" in out, out
+        assert sum(l.startswith("Epoch: 0  |  mAP: ") for l in out) == 1, out
+        assert os.path.exists(f"{d}/ckpt/last.ckpt") and os.path.exists(f"{d}/ckpt/last.weights")
+        log(f"train.run.main --config {d}/cfg.json --epochs 1: 1 epoch in "
+            f"{time.perf_counter() - t0:.1f} s, stem_train launches {first_launches}")
+
+        t0 = time.perf_counter()
         stem_train_ops.launches = nms_ops.launches = 0
         logs = []
         say = lambda m: (logs.append(m), log(" ", m))
-        state, results = train_on(train_ds, val_ds, len(full.classes) + 1, cfg, epochs=2,
-                                  resume=True, log=say, device=dev)
+        state, results, _ = run_mod.run(cfg, epochs=2, resume=True, log=say, device=dev)
         torch.cuda.synchronize()
-        steps = state.step
         launches = {"stem_train": stem_train_ops.launches, "nms": nms_ops.launches}
-        assert steps >= 4 and steps % 2 == 0, steps  # 2 epochs of at least two batches
+        assert f"resumed from {d}/ckpt/last.ckpt: 1 epochs done, 1 of 2 remaining" in logs, logs
+        steps = state.step // 2  # the steps of each epoch
+        assert steps >= 2 and state.step == 2 * steps, state.step
+        assert first_launches == steps, (first_launches, steps)
         assert launches["stem_train"] == steps and launches["nms"] > 0, launches
-        assert len(results["train_loss"]) == 2 and all(np.isfinite(results["train_loss"]))
-        assert all(np.isfinite(results["test_loss"]))
-        assert os.path.exists(f"{d}/ckpt/last.ckpt") and os.path.exists(f"{d}/ckpt/last.weights")
-        timing = results["training timing"][-1]
-        log(f"train_on: 2 epochs of {steps // 2} bs={TRAIN_BS} batches (bf16, stem kernel), "
-            f"train loss {results['train_loss'][0]:.4f} -> {results['train_loss'][1]:.4f}, "
-            f"data wait {timing['data wait'] * 1e3:.1f} ms and step {timing['step'] * 1e3:.1f} "
-            f"ms per batch in epoch 2; kernel launches {launches}")
-        state2, results2 = train_on(train_ds, val_ds, len(full.classes) + 1, cfg, epochs=3,
-                                    resume=True, log=say, device=dev)
-        assert f"resumed from {d}/ckpt/last.ckpt: 2 epochs done, 1 of 3 remaining" in logs
-        assert state2.step == steps * 3 // 2 and results2["epochs"] == [3]
-        assert len(results2["train_loss"]) == 3 and np.isfinite(results2["train_loss"][-1])
+        assert results["epochs"] == [2] and len(results["train_loss"]) == 2
+        assert all(np.isfinite(results["train_loss"])) and all(np.isfinite(results["test_loss"]))
+        train_t, test_t = results["training timing"][-1], results["testing timing"][-1]
+        log(f"train.run.run resumed for epoch 2: {steps} bs={TRAIN_BS} batches (bf16, stem "
+            f"kernel), train loss {results['train_loss'][0]:.4f} -> "
+            f"{results['train_loss'][1]:.4f}, data wait {train_t['data wait'] * 1e3:.1f} ms and "
+            f"step {train_t['step'] * 1e3:.1f} ms per batch, eval {test_t['model prediction'] * 1e3:.1f}"
+            f" ms per batch and mAP {test_t['mAP time'] * 1e3:.1f} ms; kernel launches {launches}; "
+            f"{time.perf_counter() - t0:.1f} s")
         from ssdx_torch.weights import load_params
         weights = load_params(f"{d}/ckpt/last.weights")
         assert set(weights) >= {"params", "batch_stats"}
@@ -1279,7 +1322,9 @@ def repro_timing(dev) -> dict:
     ew_lib = lambda x: torch.tanh(x) * 1.5
     ew_ms = cuda_ms(repro_ops.ew, xs, iters=200, warmup=10)
     ew_plain = cuda_ms(repro_ops.ew_ref, xs, iters=200, warmup=10)
-    ew_dev = device_ms(repro_ops.ew, [(x,) for x in xs], iters=50, kernel="ew_kernel")
+    t = time.perf_counter()
+    floor, ew_dev = bench_ew.floor_and_ew([(x,) for x in xs])  # in turns, one window
+    assert floor is not None, "the profiler lost the empty kernel's records in every window"
     ew_lib_dev = device_ms(ew_lib, [(x,) for x in xs], iters=50)
     ew_bytes, ew_ops = 2 * n * 4, 2 * n
     ew_bound = max(ew_bytes / PEAK_BYTES, ew_ops / PEAK_F32) * 1e3
@@ -1287,6 +1332,18 @@ def repro_timing(dev) -> dict:
         f"device; plain and library (torch.tanh(x) * 1.5, two launches) {ew_plain:.5f} ms by "
         f"events, {fmt(ew_lib_dev, '.5f')} ms on the device; bound {ew_bound:.6f} ms by bytes "
         f"({ew_bytes / 1e3:.0f} KB)")
+    # ew where bytes dominate (tools/bench_ew.py), against the same floor
+    ew_bench = bench_ew.run(floor=floor, check_first=False, log=lambda m: log(" ", m))
+    ew_large = {k: {f: v[f] for f in ("values", "device_ms", "ms", "library_device_ms",
+                                      "bound_ms", "share")}
+                for k, v in ew_bench["sizes"].items()}
+    log(f"ew kernel: launch floor {floor:.5f} ms in the same window as ew's "
+        f"{fmt(ew_dev, '.5f')}, so its [256,256] bound is max(floor, bytes) = "
+        f"{max(floor, ew_bound):.5f} ms and it runs at {fmt(ew_dev and ew_dev / floor, '.2f')}x "
+        f"the floor; at 2^26 values {fmt(ew_large['2^26']['device_ms'], '.5f')} ms on the device "
+        f"against {ew_large['2^26']['bound_ms']:.5f} by bytes (share "
+        f"{fmt(ew_large['2^26']['share'], '.3f')}); floor and large sizes "
+        f"{time.perf_counter() - t:.1f} s")
     mm_f32 = lambda x, y: torch.mm(x, y, out_dtype=torch.float32)
     mm_ms = cuda_ms(lambda a: repro_ops.mm(*a), ms, iters=50, warmup=5)
     mm_plain = cuda_ms(lambda a: repro_ops.mm_ref(*a), ms, iters=50, warmup=5)
@@ -1312,7 +1369,9 @@ def repro_timing(dev) -> dict:
         "ew": {"name": "ew", "route": "cuda", "source": "ssdx_torch/csrc/repro.cu",
                "replaces": "scripts/repro_shardmap_pallas.py:68", "ms": ew_ms,
                "plain_ms": ew_plain, "bound_ms": ew_bound, "bound_by": "bytes",
-               "library_ms": ew_plain, "device_ms": ew_dev, "library_device_ms": ew_lib_dev},
+               "library_ms": ew_plain, "device_ms": ew_dev, "library_device_ms": ew_lib_dev,
+               "floor_ms": floor, "bound_with_floor_ms": max(floor, ew_bound),
+               "large": ew_large},
         "mm": {"name": "mm", "route": "cuda", "source": "ssdx_torch/csrc/gemm_sm90.cu",
                "replaces": "scripts/repro_shardmap_pallas.py:88", "ms": mm_ms,
                "plain_ms": mm_plain, "bound_ms": mm_bound,
@@ -1554,6 +1613,34 @@ def eval_path(dev) -> None:
     assert np.isfinite(float(m.group(3))) and float(m.group(1)) > 0.5, line
 
 
+# --------------------------------------------------------------- phase 22
+
+OVERFIT_EPOCHS, OVERFIT_STEPS = 40, 2  # 32 images at bs=16: 2 steps an epoch
+
+
+def overfit_path() -> None:
+    """tools/overfit_check.py through its entry point at full width on the
+    card: 32 images, 40 epochs, the train step with B3; it must pass."""
+    stem_train_ops.launches = nms_ops.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    rc = overfit_check.main(["--epochs", str(OVERFIT_EPOCHS), "--eval-every", "5"],
+                            log=lambda m: (lines.append(m), log(" ", m)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"stem_train": stem_train_ops.launches, "nms": nms_ops.launches}
+    m = re.fullmatch(r"RESULT: (PASS|FAIL)  \(first mAP=([0-9.]+), final mAP=([0-9.]+)\)",
+                     lines[-1])
+    assert m, lines[-1]
+    first, final = float(m.group(2)), float(m.group(3))
+    log(f"overfit check, full width bf16 on the card: {m.group(1)}, mAP@0.5 {first:.4f} -> "
+        f"{final:.4f}, stem_train (B3) launches {launches['stem_train']}, NMS launches "
+        f"{launches['nms']}, {secs:.1f} s")
+    assert rc == 0 and m.group(1) == "PASS" and final > 0.5 and final > first, lines[-1]
+    assert launches["stem_train"] == OVERFIT_EPOCHS * OVERFIT_STEPS, launches
+    assert launches["nms"] > 0, launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -1608,7 +1695,9 @@ def main() -> int:
     tool = tool_path()
     kernels += pool_brp_timing(dev, tool["launches"], errs, brp_split, brp_lines)
     check_augment(dev)
+    t = time.perf_counter()
     data_path(dev)
+    log(f"phase 17's training command and resume: {time.perf_counter() - t:.1f} s")
     errs.update(check_repro(dev))
     mesh_lib.initialize_distributed(init_method=f"tcp://localhost:{repro_tool.free_port()}",
                                     world_size=1, rank=0)
@@ -1621,6 +1710,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     two_rank_path(ref)
     eval_path(dev)
+    overfit_path()
     log(f"chip_smoke phases done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

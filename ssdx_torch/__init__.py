@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "__version__"]
+
+__version__ = "0.1.0"  # the JAX package's version: the two describe one system
 
 
 def resolve_device(device=None) -> torch.device:

@@ -12,6 +12,10 @@
 //      not a multiple of four goes value by value.  Bound by bytes (x read
 //      once, out written once, at 3.35 TB/s); at the tool's 256x256 input
 //      that is 0.16 us, far below the cost of a launch.
+//
+// empty: a kernel that does nothing, one block of 256 threads: the launch
+//      floor, the least device time of any launch on this stream, which is
+//      the bound of ew at small sizes (tools/bench_ew.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,6 +32,8 @@ __global__ void ew_kernel(const float* __restrict__ x, float* __restrict__ out, 
   }
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 = success).  Both pointers are
@@ -40,5 +46,10 @@ extern "C" int ssdx_repro_ew(const void* x, void* out, long long n, void* stream
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   ew_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ssdx_repro_empty(void* stream) {
+  empty_kernel<<<1, 256, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

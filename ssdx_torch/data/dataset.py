@@ -181,3 +181,17 @@ class DetectionDataset:
             bh = np.clip(target["boxes"][:, 3] - target["boxes"][:, 1], 0, hh)
             target["areas"] = (bw * bh).astype(np.float32)
         return img, target
+
+    def show_with_box(self, index: int, **kwargs):
+        """Plot one image with its GT boxes (and optional predictions) --
+        the reference ImageClass.show_with_box (CarImageClass.py:142-337).
+        Keyword args are forwarded to :func:`ssdx_torch.viz.show_with_box`."""
+        from ..viz import show_with_box
+
+        if index > len(self) or index < 0:
+            raise ValueError(
+                f"Index should be between 0 and {len(self)}, received {index}."
+            )
+        img, target = self[index]
+        kwargs.setdefault("class_to_idx", self.class_to_idx)
+        return show_with_box(img, target, **kwargs)

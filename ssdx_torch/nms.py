@@ -13,7 +13,7 @@ import torch
 
 from .ops.nms import nms_core_sorted
 
-__all__ = ["batched_nms_mask"]
+__all__ = ["batched_nms_mask", "nms_mask"]
 
 _CLASS_OFFSET = 4096.0  # > any coordinate magnitude used (boxes live in [0, 300])
 
@@ -36,3 +36,21 @@ def batched_nms_mask(
     v = torch.gather(valid, 1, order)
     keep_sorted = nms_core_sorted(b, v, iou_threshold)
     return torch.zeros_like(valid).scatter_(1, order, keep_sorted)
+
+
+def nms_mask(
+    boxes: torch.Tensor,  # [N, 4]
+    scores: torch.Tensor,  # [N]
+    valid: torch.Tensor,  # [N]
+    iou_threshold: float,
+    labels: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Single-image convenience wrapper around :func:`batched_nms_mask`."""
+    return batched_nms_mask(
+        boxes[None],
+        scores[None],
+        valid[None],
+        None if labels is None else labels[None],
+        iou_threshold,
+        class_aware=labels is not None,
+    )[0]

@@ -19,7 +19,7 @@ import torch
 
 from . import _build, gemm
 
-__all__ = ["ew", "ew_ref", "mm", "mm_ref", "launches_ew", "launches_mm"]
+__all__ = ["ew", "ew_ref", "mm", "mm_ref", "empty", "launches_ew", "launches_mm"]
 
 launches_ew = 0  # kernel launches by ew
 launches_mm = 0  # kernel launches by mm
@@ -44,6 +44,8 @@ def _kernel():
         p = ctypes.c_void_p
         lib.ssdx_repro_ew.argtypes = [p, p, ctypes.c_longlong, p]
         lib.ssdx_repro_ew.restype = ctypes.c_int
+        lib.ssdx_repro_empty.argtypes = [p]
+        lib.ssdx_repro_empty.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -68,6 +70,19 @@ def ew(x):
         raise RuntimeError(f"ew kernel launch failed: CUDA error {err}")
     launches_ew += 1
     return out
+
+
+def empty(device) -> None:
+    """Launch ``csrc/repro.cu``'s empty kernel (one block of 256 threads) on
+    the current stream of a CUDA ``device``: the launch floor that ``ew`` is
+    measured against.  It computes nothing and is no kernel of any path."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"empty: a CUDA device, not {dev}")
+    with torch.cuda.device(dev):
+        err = _kernel().ssdx_repro_empty(torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def _check_mm(x, y):

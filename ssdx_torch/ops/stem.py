@@ -21,14 +21,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .pool import sm_count
 
-__all__ = ["stem_conv_pool", "stem_conv_pool_ref", "launches", "TILE_ROWS", "TILE_COLS",
-           "TILES_PER_IMAGE", "grid_size", "tile_origin"]
+__all__ = ["stem_conv_pool", "stem_conv_pool_ref", "stem_available", "launches", "TILE_ROWS",
+           "TILE_COLS", "TILES_PER_IMAGE", "grid_size", "tile_origin"]
 
 launches = 0  # kernel launches by stem_conv_pool
 
 _H, _C = 300, 64
-_SMS = 132  # streaming multiprocessors of an H100 SXM: one persistent block each
 # The conv tile of the wgmma core (csrc/stem_sm90.cuh: TR, TW, TILES_X):
 # 4 conv rows by 62 columns, 75 x 5 tiles an image, walked by persistent
 # blocks in the order tile = block, block + grid, ...
@@ -38,10 +38,21 @@ TILES_PER_IMAGE = (_H // TILE_ROWS) * _TILES_X
 _lib = None
 
 
-def grid_size(B):
-    """Persistent blocks of a launch over ``B`` images (the stem kernels and
+def grid_size(B, sms):
+    """Persistent blocks of a launch over ``B`` images on a card of ``sms``
+    streaming multiprocessors, one block each (the stem kernels and
     stem_train's stage2 and dw2 use the same)."""
-    return min(B * TILES_PER_IMAGE, _SMS)
+    return min(B * TILES_PER_IMAGE, sms)
+
+
+def stem_available(params) -> bool:
+    """True when ``params`` (an ``SSD300`` state dict, or its
+    ``named_parameters()`` as a dict) carries the two stem convs this kernel
+    needs."""
+    try:
+        return all(f"layers.{i}.conv.{k}" in params for i in (0, 1) for k in ("weight", "bias"))
+    except TypeError:
+        return False
 
 
 def tile_origin(t):
@@ -104,7 +115,7 @@ def stem_conv_pool(images, w1, b1, w2, b2, dtype=torch.bfloat16):
     with torch.cuda.device(dev):
         err = _kernel().ssdx_stem_forward(
             x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
-            b2p.data_ptr(), out.data_ptr(), B, grid_size(B),
+            b2p.data_ptr(), out.data_ptr(), B, grid_size(B, sm_count(dev)),
             torch.cuda.current_stream(dev).cuda_stream)
     # The temporaries above are freed on return while the kernel may still
     # run; the caching allocator hands their memory only to later work on

@@ -47,15 +47,15 @@ import torch.nn.functional as F
 
 from ..mesh import all_reduce_sum
 from . import _build
+from .pool import sm_count
 from .stem import grid_size
 
-__all__ = ["stem_train", "stem_train_ref", "pool_routing_ref", "StemTrain", "StemTrainRef",
-           "launches"]
+__all__ = ["stem_train", "stem_train_ref", "stem_train_reference_params", "pool_routing_ref",
+           "StemTrain", "StemTrainRef", "launches"]
 
 launches = 0  # forwards of stem_train that launched the kernels
 
 _H, _C = 300, 64
-_SMS = 132  # streaming multiprocessors of an H100 SXM
 _lib = None
 
 
@@ -264,7 +264,7 @@ def _empty(shape, dtype, dev):
 
 def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
-    B = x.shape[0]
+    B, sms = x.shape[0], sm_count(dev)
     n = _global_n(B, mesh)
     xb = x.detach().to(bf).contiguous()
     w1p = w1.detach().to(bf).float().permute(2, 3, 1, 0).reshape(27, _C).contiguous()
@@ -272,14 +272,14 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     w2p = w2.detach().to(bf).permute(0, 2, 3, 1).reshape(_C, 9 * _C).contiguous()  # [co][tap*64+ci]
 
     y1 = _empty((B, _H, _H, _C), bf, dev)
-    grid = min(B * _H, 4 * _SMS)
+    grid = min(B * _H, 4 * sms)
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_conv1", xb, w1p, b1p, y1, part, B, grid)
     mean1, var1, inv1 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
     a1, c1 = _affine(g1, be1, mean1, inv1)
 
     y2, y1n = _empty((B, _H, _H, _C), bf, dev), _empty((B, _H, _H, _C), bf, dev)
-    grid = grid_size(B)
+    grid = grid_size(B, sms)
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_stage2", 0, y1, None, w2p, _vec([a1, c1, b2.detach()], dev), None,
             y2, y1n, part, B, grid)
@@ -287,14 +287,14 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     a2, c2 = _affine(g2, be2, mean2, inv2)
 
     p = _empty((B, _H // 2, _H // 2, _C), bf, dev)
-    _launch("ssdx_st_pool", y2, _vec([a2, c2], dev), p, B, 16 * _SMS)
+    _launch("ssdx_st_pool", y2, _vec([a2, c2], dev), p, B, 16 * sms)
     return p, (mean1, var1, inv1, mean2, var2, inv2), y1, y2, xb, y1n
 
 
 def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None):
     mean1, var1, inv1, mean2, var2, inv2 = stats
     bf, f32, dev = torch.bfloat16, torch.float32, dp.device
-    B = dp.shape[0]
+    B, sms = dp.shape[0], sm_count(dev)
     n = _global_n(B, mesh)
     a1, c1 = _affine(g1, be1, mean1, inv1)
     a2, c2 = _affine(g2, be2, mean2, inv2)
@@ -302,7 +302,7 @@ def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None
 
     # D: pool routing -> dt2, BN2 sums
     dt2 = _empty(y2.shape, bf, dev)
-    grid = 4 * _SMS
+    grid = 4 * sms
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_route", y2, dpb, _vec([a2, c2, inv2, mean2], dev), dt2, part, B, grid)
     sums = _colsum(part)
@@ -313,7 +313,7 @@ def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None
     # [ci][dr'][dc'][co] = w2[co][ci][2-dr'][2-dc']
     w2t = w2.detach().to(bf).flip(2, 3).permute(1, 2, 3, 0).reshape(_C, 9 * _C).contiguous()
     dt1, dy2 = _empty(y1.shape, bf, dev), _empty(y1.shape, bf, dev)
-    grid = grid_size(B)
+    grid = grid_size(B, sms)
     part = _empty((grid, 2 * _C), f32, dev)
     vec_e = _vec([g2 * inv2, mean2, inv2, s1_2g / n, s2_2g / n, a1, c1, mean1, inv1], dev)
     _launch("ssdx_st_stage2", 1, dt2, y2, w2t, vec_e, y1, dt1, dy2, part, B, grid)
@@ -322,14 +322,14 @@ def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None
     s1_1g, s2_1g = _global_sums(s1_1, s2_1, mesh)
 
     # dW2: split-K over conv tiles, one slice per SM
-    grid = grid_size(B)
+    grid = grid_size(B, sms)
     part = _empty((grid, 9 * _C * _C), f32, dev)
     _launch("ssdx_st_dw2", y1n, dy2, part, B, grid)
     del dy2
     dw2 = _colsum(part).view(3, 3, _C, _C).permute(3, 2, 0, 1).contiguous()
 
     # F: BN1 backward and dW1
-    grid = min(B * _H, 2 * _SMS)
+    grid = min(B * _H, 2 * sms)
     part = _empty((grid, 27 * _C), f32, dev)
     vec_f = _vec([g1 * inv1, mean1, inv1, s1_1g / n, s2_1g / n], dev)
     _launch("ssdx_st_dw1", xb, y1, dt1, vec_f, part, B, grid)
@@ -355,6 +355,15 @@ class StemTrain(torch.autograd.Function):
         (xb, w2, y1n), (g1, be1, g2, be2), y1, y2, stats = _unsave(ctx)
         grads = _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, ctx.mesh)
         return _grads(ctx, dp, *grads)
+
+
+def stem_train_reference_params(params):
+    """``(w1, b1, g1, be1, w2, b2, g2, be2)`` from an ``SSD300`` state dict
+    (or its ``named_parameters()`` as a dict): conv1_1's and conv1_2's OIHW
+    kernels and biases and their BN scales and shifts, in
+    :func:`stem_train`'s argument order."""
+    return tuple(params[f"layers.{i}.{k}"] for i in (0, 1)
+                 for k in ("conv.weight", "conv.bias", "bn.weight", "bn.bias"))
 
 
 def stem_train(x, w1, b1, g1, be1, w2, b2, g2, be2, eps=1e-5, dtype=torch.bfloat16,

@@ -80,33 +80,57 @@ WINDOW_PAD_S = 0.025
 lost_windows = []  # (records counted, calls) of each window that lost records
 
 
-def device_time(fn, inputs, iters=20, tries=3, kernel=None) -> tuple[float | None, list]:
-    """Device time per call of fn(*x) under ``torch.profiler`` over
-    ``iters`` calls, and the distinct names of the kernels it counted
-    (:func:`counted`).  The calls run ``WINDOW_PAD_S`` from either end of
-    the window.  A window that has lost records (on the card it happens, in
-    some runs, to whole windows; each loss is kept in ``lost_windows``) is
-    run again, at most ``tries`` times in all; then the time is None: not
-    measured."""
+def _window(fn, inputs, iters) -> list:
+    """The device records of one profiler window over ``iters`` calls of
+    fn(*x), run ``WINDOW_PAD_S`` from either end of the window."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _warm(fn, inputs) -> None:
     for x in inputs[:2]:
         fn(*x)
     torch.cuda.synchronize()
+
+
+def device_time(fn, inputs, iters=20, tries=3, kernel=None) -> tuple[float | None, list]:
+    """Device time per call of fn(*x) under ``torch.profiler`` over
+    ``iters`` calls, and the distinct names of the kernels it counted
+    (:func:`counted`).  A window that has lost records (on the card it
+    happens, in some runs, to whole windows; each loss is kept in
+    ``lost_windows``) is run again, at most ``tries`` times in all; then the
+    time is None: not measured."""
+    _warm(fn, inputs)
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(WINDOW_PAD_S)
-            for i in range(iters):
-                fn(*inputs[i % len(inputs)])
-            torch.cuda.synchronize()
-            time.sleep(WINDOW_PAD_S)
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _window(fn, inputs, iters)
         names = counted([e.name for e in events], iters, kernel)
         if names is not None:
             us = sum(e.time_range.elapsed_us() for e in events if kernel is None or kernel in e.name)
             return us / iters / 1e3, sorted(set(names))
         lost_windows.append((sum(kernel is None or kernel in e.name for e in events), iters))
     return None, []
+
+
+def device_times(fn, inputs, kernels, iters=20, tries=3) -> dict:
+    """Device time per call of each of ``kernels`` (a part of a kernel's
+    name; fn(*x) launches each once), all from one profiler window, so that
+    they can be compared; each is None when every window lost records."""
+    _warm(fn, inputs)
+    for _ in range(tries):
+        events = _window(fn, inputs, iters)
+        names = [e.name for e in events]
+        if all(counted(names, iters, k) is not None for k in kernels):
+            return {k: sum(e.time_range.elapsed_us() for e in events if k in e.name) / iters / 1e3
+                    for k in kernels}
+        lost_windows.append((len(events), iters))
+    return dict.fromkeys(kernels)
 
 
 def device_ms(fn, inputs, iters=20, tries=3, kernel=None) -> float | None:

@@ -17,7 +17,7 @@ both steps and the checkpoint calls; only rank 0 logs and writes
 ``last.weights``.  A bare ``python -m`` stays one process.
 
 Usage: ``python -m ssdx_torch.train.run --train-dir data/train [--config
-cfg.json] [--save-dir DIR] [--epochs N] [--no-resume] [--smoke]``
+cfg.json] [--save-dir DIR] [--epochs N] [--no-resume] [--smoke] [--cpu]``
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from ..config import Config
 from ..data.augment import AugmentConfig
 from ..data.dataset import DetectionDataset
 from ..data.pipeline import DetectionLoader
+from ..data.split import make_train_test_split
 from ..mesh import create_mesh, initialize_distributed
 from ..model import SSD300, init_variables
 from ..weights import variables_from_torch
@@ -48,8 +49,6 @@ def run(cfg: Config, epochs: int | None = None, resume: bool = True, log=print, 
 
     ``device=None`` is the GPU (see :func:`ssdx_torch.resolve_device`).
     """
-    from ..data.split import make_train_test_split  # needs scikit-learn
-
     d = cfg.data
     if create_mesh(device).rank != 0:
         log = lambda *_: None
@@ -171,6 +170,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="2 epochs, small batch: a sanity run of the pipeline")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU, not the GPU")
     args = ap.parse_args(argv)
 
     cfg = Config.from_json(args.config) if args.config else Config()
@@ -186,8 +186,9 @@ def main(argv=None) -> None:
         )
         args.epochs = 2
 
-    initialize_distributed()
-    run(cfg, epochs=args.epochs, resume=not args.no_resume)
+    device = "cpu" if args.cpu else None
+    initialize_distributed(device=device)
+    run(cfg, epochs=args.epochs, resume=not args.no_resume, device=device)
 
 
 if __name__ == "__main__":

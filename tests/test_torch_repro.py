@@ -76,6 +76,26 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert repro.launches_ew == 0 and repro.launches_mm == 0
 
 
+def test_launch_floor_kernel_is_one_empty_block_and_needs_the_card():
+    """The floor that S2a is held against: an empty kernel launched as one
+    block of 256 threads (csrc/repro.cu); its wrapper takes no CPU device."""
+    src = (REPO / "ssdx_torch" / "csrc" / "repro.cu").read_text()
+    assert "__global__ void empty_kernel() {}" in src
+    assert "empty_kernel<<<1, 256, 0, (cudaStream_t)stream>>>();" in src
+    with pytest.raises(ValueError, match="a CUDA device"):
+        repro.empty("cpu")
+
+
+def test_ew_bounds_of_the_floor_tool():
+    """tools/bench_ew.py's sizes and their byte bounds at 3.35 TB/s: 2^26
+    float32 values read and written take 0.160 ms."""
+    from ssdx_torch.tools import bench_ew
+
+    n = {k: int(np.prod(v)) for k, v in bench_ew.SIZES.items()}
+    assert n == {"[256,256]": 65536, "2^22": 1 << 22, "2^26": 1 << 26}
+    assert abs(2 * n["2^26"] * 4 / bench_ew.PEAK_BYTES * 1e3 - 0.16026) < 1e-5
+
+
 def test_tool_prints_six_ok_lines_at_one_rank(capsys):
     rc = tool.main(["--cpu", "--timeout", "300"])
     out = capsys.readouterr().out

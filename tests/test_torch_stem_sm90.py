@@ -324,12 +324,13 @@ def test_conv1_1_epilogue_stmatrix_lands_on_the_halo_layout():
 # ------------------------------------------------------------ the work split
 
 
+@pytest.mark.parametrize("sms", [114, 132])  # H100 PCIe, H100 SXM
 @pytest.mark.parametrize("B", [1, 3, 5, 8, 16, 32])
-def test_work_split_covers_every_pooled_pixel_once(B):
+def test_work_split_covers_every_pooled_pixel_once(B, sms):
     """Blocks walk tiles blk, blk + grid, ...; each tile writes pooled rows
     r0/2 + wg and 31 pooled columns from c0/2 (clipped at 150)."""
-    grid = stem_ops.grid_size(B)
-    assert grid == min(B * stem_ops.TILES_PER_IMAGE, 132)
+    grid = stem_ops.grid_size(B, sms)
+    assert grid == min(B * stem_ops.TILES_PER_IMAGE, sms)
     count = np.zeros((B, 150, 150), np.int64)
     taken = np.zeros(B * stem_ops.TILES_PER_IMAGE, np.int64)
     for blk in range(grid):

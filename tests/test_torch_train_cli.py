@@ -85,19 +85,20 @@ def test_run_trains_resumes_and_exports(toy_train_dir, tmp_path):
 
 def test_main_parses_the_flags_of_the_jax_command(toy_train_dir, tmp_path, monkeypatch):
     calls = []
-    monkeypatch.setattr(run_mod, "run", lambda cfg, epochs, resume: calls.append(
-        (cfg, epochs, resume)))
+    monkeypatch.setattr(run_mod, "run", lambda cfg, epochs, resume, device: calls.append(
+        (cfg, epochs, resume, device)))
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(json.dumps({"train": {"width_mult": 0.25, "epochs": 7}}))
     run_mod.main(["--config", str(cfg_path), "--train-dir", str(toy_train_dir), "--save-dir",
                   str(tmp_path / "out"), "--epochs", "3", "--no-resume"])
-    cfg, epochs, resume = calls[-1]
+    cfg, epochs, resume, device = calls[-1]
     assert (cfg.data.train_dir, cfg.train.save_dir) == (str(toy_train_dir), str(tmp_path / "out"))
     assert cfg.train.width_mult == 0.25 and cfg.train.epochs == 7 and epochs == 3 and not resume
-    run_mod.main(["--train-dir", str(toy_train_dir), "--smoke"])
-    cfg, epochs, resume = calls[-1]
+    assert device is None  # the GPU
+    run_mod.main(["--train-dir", str(toy_train_dir), "--smoke", "--cpu"])
+    cfg, epochs, resume, device = calls[-1]
     assert (cfg.data.batch_size, cfg.data.num_workers, cfg.train.epochs) == (8, 2, 2)
-    assert epochs == 2 and resume
+    assert epochs == 2 and resume and device == "cpu"
 
 
 def test_run_needs_a_gpu_unless_asked_for_the_cpu(toy_train_dir, tmp_path):
@@ -107,3 +108,47 @@ def test_run_needs_a_gpu_unless_asked_for_the_cpu(toy_train_dir, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         run_mod.run(_config(toy_train_dir, tmp_path), epochs=1)
+
+
+def test_command_trains_where_scikit_learn_is_missing(toy_train_dir, tmp_path):
+    """``python -m ssdx_torch.train.run`` in a process that cannot import
+    scikit-learn: the stratified group split is the port's own."""
+    import subprocess
+    import sys
+
+    from torch_parity import REPO
+
+    cfg = _config(toy_train_dir, tmp_path / "ckpt")
+    cfg.to_json(tmp_path / "cfg.json")
+    code = ("import sys, runpy; sys.modules['sklearn'] = None; "
+            "sys.argv = ['run', '--config', sys.argv[1], '--cpu']; "
+            "runpy.run_module('ssdx_torch.train.run', run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "cfg.json")],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert "dataset: 18 train / 6 val images, classes=['car', 'pedestrian', 'truck']" in lines
+    assert sum(l.startswith("Epoch: 0  |  mAP: ") for l in lines) == 1
+    assert (tmp_path / "ckpt" / "last.ckpt").exists()
+    assert (tmp_path / "ckpt" / "last.weights").exists()
+
+
+def test_stage_timer_covers_one_epoch_and_puts_the_command_back(toy_train_dir, tmp_path,
+                                                                 monkeypatch):
+    """tools/profile_train_command.py times every stage of the command's
+    epoch, inside the command's own wall time, and leaves ``train.run`` and
+    ``train.loop`` as it found them."""
+    from ssdx_torch.tools import profile_train_command as ptc
+
+    monkeypatch.setattr(ptc.torch.cuda, "synchronize", lambda *a, **k: None)  # no card here
+    before = {(m, n): getattr(m, n) for m, names in ptc.STAGES.items() for n in names}
+    before_step, before_fit = run_mod.make_train_step, run_mod.fit
+    _config(toy_train_dir, tmp_path / "ckpt").to_json(tmp_path / "cfg.json")
+    wall, secs, calls = ptc.stages(["--config", str(tmp_path / "cfg.json"), "--cpu"])
+    assert calls["train step (first)"] == 1 and calls["train step (later)"] >= 1
+    assert calls["DetectionLoader"] == 2 and calls["evaluate"] == 1 and calls["save_params"] == 1
+    assert calls["save_checkpoint"] >= 1 and "load_checkpoint" not in calls
+    assert secs["loader wait"] > 0 and 0 < sum(secs.values()) <= wall
+    assert all(getattr(m, n) is fn for (m, n), fn in before.items())
+    assert (run_mod.make_train_step, run_mod.fit) == (before_step, before_fit)
+    assert (tmp_path / "ckpt" / "last.weights").exists()
