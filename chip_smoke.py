@@ -17,7 +17,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      0.3, 0.5, -0.2 and one that pairs reach exactly: keep masks equal bit
      for bit;
   5. the main path: create_detector() (BN-folded bf16 SSD300 with the stem
-     kernel, bundled demo weights) and predict_pil on the three example
+     kernel, the weights the app serves: the JAX package's demo bundle in a
+     checkout) and predict_pil on the three example
      scenes, with the kernels' launch counters set to 0 just before and read
      just after; detections are compared with the same weights run in f32
      through the plain ops;
@@ -129,7 +130,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      exactly; forward on B=5 equals the meshless forward; 3 bf16 bs=16
      train steps with the stem kernel equal phase 9's meshless steps loss
      for loss, exactly; save_checkpoint_sharded writes the directory format
-     and load_checkpoint restores it;
+     and load_checkpoint restores it; then the dry run's per-rank body
+     (tools/dryrun.py, the counterpart of __graft_entry__.py) in the same
+     group at full width: a train step on the synthetic batch and one on a
+     loader batch (B3), Detector(mesh=) on 4 images (B2, B1), the launch
+     counters set to 0 just before and read just after;
  20. two ranks on the one card: two worker processes over gloo, 8 of the 16
      images each, 3 train steps with the stem kernel's statistics
      all-reduced, against the one-process bs=16 steps: the stem BNs'
@@ -137,21 +142,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      magnitude, losses within 1 %, both ranks' parameters bit-identical; then Detector(mesh=)
      at two ranks on B=5 (padded to 6) against one process: heads within
      0.05 of their largest magnitude; a worker that fails or outlives its
-     time limit fails the run;
+     time limit fails the run; then, in the same two workers, the dry
+     run's per-rank body at full width over gloo: each rank's launches of
+     B3, B2 and B1 above 0, both ranks' parameters bit-identical;
  21. eval: the C++ matcher is available and equals the numpy matcher on
      seeded boxes; python -m ssdx_torch.eval.run on the demo weights over a
      SynthDrive test directory prints its mAP line (finite, above 0.5);
  22. learning: tools/overfit_check.py at full width in bf16 on 32 images
      of rectangles for 40 epochs, the train step with the stem kernel (80
      launches, counted) and eval with the NMS kernel: final mAP@0.5 above
-     0.5 and above the first evaluation, or the run fails.
+     0.5 and above the first evaluation, or the run fails;
+ 23. (run right after phase 13, while phase 5's and phase 12's detectors
+     are alive) the serving bench: tools/bench_serving.py's function on the
+     bf16 and the int8 detector behind the HTTP server with micro-batching,
+     2 clients x 4 requests and 5 sequential: every request answered 200
+     with a PNG, the batcher's image count equal to the requests sent, stem
+     and NMS launches above 0 and, in int8, int8 conv launches above 0; its
+     JSON on a log line.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import io
 import json
 import os
@@ -182,8 +195,9 @@ from ssdx_torch.ops import repro as repro_ops
 from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.serve.app import (BUNDLED_WEIGHTS, CLASS_TO_IDX, STATIC_DIR,
-                                  create_detector, create_server)
+                                  create_detector, create_server, serving_weights)
 from ssdx_torch.tools import bench_ew
+from ssdx_torch.tools import bench_serving
 from ssdx_torch.tools import bench_int8_mm
 from ssdx_torch.tools import check_gemm
 from ssdx_torch.tools import check_stem as stem_check
@@ -191,6 +205,7 @@ from ssdx_torch.tools import profile_stem
 from ssdx_torch.tools import check_brp as brp_check
 from ssdx_torch.tools import check_int8_conv as int8_check
 from ssdx_torch.tools import check_nms as nms_check
+from ssdx_torch.tools import dryrun
 from ssdx_torch.tools import overfit_check
 from ssdx_torch.tools import profile_split
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
@@ -313,7 +328,7 @@ def main_path(dev):
     # the same weights in f32 through the plain ops: cuDNN convs (TF32 off)
     # on the card, post-processing with the plain NMS on host tensors
     torch.backends.cudnn.allow_tf32 = False
-    ref_det = Detector.from_weights(BUNDLED_WEIGHTS, CLASS_TO_IDX, device=dev)
+    ref_det = Detector.from_weights(det.weights_source, CLASS_TO_IDX, device=dev)
     images = np.concatenate([ref_det.preprocess_pil(Image.open(p)) for p in scenes])
     loc, conf = ref_det.forward(images)
     torch.backends.cudnn.allow_tf32 = True
@@ -1396,8 +1411,8 @@ MESH_B = 5  # an odd batch: two ranks pad it to 6
 
 
 def mesh_detector(mesh):
-    """create_detector()'s configuration on the bundled weights, in a mesh."""
-    return Detector.from_weights(BUNDLED_WEIGHTS, CLASS_TO_IDX, stem_kernel=True,
+    """create_detector()'s configuration and weights, in a mesh."""
+    return Detector.from_weights(serving_weights(), CLASS_TO_IDX, stem_kernel=True,
                                  dtype=torch.bfloat16, mesh=mesh)
 
 
@@ -1480,6 +1495,35 @@ def mesh_path(dev, mesh, det, preds5, plain_losses) -> dict:
     return ref
 
 
+def dryrun_launches() -> dict:
+    return {"stem_train": stem_train_ops.launches, "stem": stem_ops.launches,
+            "nms": nms_ops.launches}
+
+
+def check_dryrun(n: int, result: dict, launches: dict) -> None:
+    """One rank's result of tools/dryrun.py's body at full width: two steps,
+    a finite loss, B3 in the steps, B2 and B1 in Detector(mesh=)."""
+    assert result["step"] == 2 and np.isfinite(result["loss"]), result
+    assert np.isfinite(result["loader_loss"]) and result["boxes"] == [4 * n, 100, 4], result
+    assert result["launches"] == launches and all(v > 0 for v in launches.values()), launches
+
+
+def dryrun_path(mesh) -> None:
+    """The dry run's per-rank body (tools/dryrun.py, the counterpart of
+    __graft_entry__.py) in phase 19's one-rank NCCL group at full width."""
+    stem_ops.launches = nms_ops.launches = stem_train_ops.launches = 0
+    t = time.perf_counter()
+    result = dryrun.rank_body(mesh)
+    torch.cuda.synchronize()
+    launches = dryrun_launches()
+    log(dryrun.ok_line(mesh.size, result))
+    log(f"  dry run at one rank ({mesh.backend}), full width: losses {result['loss']:.4f} "
+        f"(synthetic batch) and {result['loader_loss']:.4f} (loader batch), kernel launches "
+        f"{launches}, {time.perf_counter() - t:.1f} s")
+    check_dryrun(mesh.size, result, launches)
+    assert result["backend"] == "nccl", result
+
+
 # --------------------------------------------------------------- phase 20
 
 WORKER_TIMEOUT_S = 420
@@ -1505,15 +1549,19 @@ def mesh_worker(rank: int, port: int, outdir: str) -> int:
         losses.append(float(m["loss"]))
         bn = bn or stem_bn_stats(state.model)
     step_s = (time.perf_counter() - t0) / MESH_STEPS
-    digest = hashlib.sha256()
-    for t in state.model.state_dict().values():
-        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
-    out = {"losses": losses, "bn": bn, "params": digest.hexdigest(),
+    out = {"losses": losses, "bn": bn, "params": dryrun.params_digest(state.model),
            "step_s": step_s, "stem_train_launches": stem_train_ops.launches}
     del state, step
     torch.cuda.empty_cache()
     loc, cls = mesh_detector(mesh).forward(mesh_images(dev))
     out.update(loc=loc.cpu(), cls=cls.cpu(), stem_launches=stem_ops.launches)
+    del loc, cls
+    torch.cuda.empty_cache()
+    stem_ops.launches = nms_ops.launches = stem_train_ops.launches = 0
+    t = time.perf_counter()
+    out["dryrun"] = dryrun.rank_body(mesh)  # tools/dryrun.py's body in this group
+    torch.cuda.synchronize()
+    out.update(dryrun_launches=dryrun_launches(), dryrun_s=time.perf_counter() - t)
     torch.save(out, f"{outdir}/rank{rank}.pt")
     mesh_lib.barrier(mesh)
     mesh_lib.finalize_distributed()
@@ -1565,6 +1613,16 @@ def two_rank_path(ref) -> None:
             f"rank's 3 images and the whole 5 may take other cuDNN algorithms in bf16)")
         assert torch.isfinite(a[name]).all() and e <= HEADS_RTOL, (name, e)
     assert a["stem_launches"] == 1, a["stem_launches"]
+    da, db = a["dryrun"], b["dryrun"]
+    log(dryrun.ok_line(2, da))
+    log(f"  dry run at two ranks ({da['backend']}, the card shared), full width: losses "
+        f"{da['loss']:.4f} and {da['loader_loss']:.4f} on both ranks, parameters bit-identical "
+        f"(sha256 {da['params'][:12]}): {da['params'] == db['params']}; kernel launches per rank "
+        f"{a['dryrun_launches']} and {b['dryrun_launches']}, {a['dryrun_s']:.1f} s")
+    assert da["params"] == db["params"], "the dry run's ranks' parameters differ"
+    assert da["loss"] == db["loss"] and da["backend"] == "gloo", (da, db)
+    check_dryrun(2, da, a["dryrun_launches"])
+    check_dryrun(2, db, b["dryrun_launches"])
 
 
 # --------------------------------------------------------------- phase 21
@@ -1641,6 +1699,37 @@ def overfit_path() -> None:
     assert launches["nms"] > 0, launches
 
 
+# --------------------------------------------------------------- phase 23
+
+BENCH_CLIENTS, BENCH_REQUESTS, BENCH_SEQUENTIAL = 2, 4, 5
+
+
+def bench_path(det, det8) -> None:
+    """tools/bench_serving.py's function, short, on the bf16 detector of
+    phase 5 and the int8 detector of phase 12 (run right after phase 13,
+    while both are alive)."""
+    for name, d in (("bf16", det), ("int8", det8)):
+        stem_ops.launches = nms_ops.launches = 0
+        int8_ops.launches = int8_ops.launches_conv3 = int8_ops.launches_mm = 0
+        t = time.perf_counter()
+        out = bench_serving.bench(d, clients=BENCH_CLIENTS, requests=BENCH_REQUESTS,
+                                  sequential=BENCH_SEQUENTIAL)
+        torch.cuda.synchronize()
+        launches = {"stem": stem_ops.launches, "nms": nms_ops.launches,
+                    "int8_conv3": int8_ops.launches_conv3, "int8_mm": int8_ops.launches_mm}
+        log(f"serving bench, {name} ({BENCH_CLIENTS} clients x {BENCH_REQUESTS} requests, "
+            f"{BENCH_SEQUENTIAL} sequential): {json.dumps(out)}")
+        log(f"  kernel launches {launches} (bucket warm-up included), "
+            f"{time.perf_counter() - t:.1f} s")
+        sent = 1 + BENCH_SEQUENTIAL + BENCH_CLIENTS * BENCH_REQUESTS
+        assert out["requests_sent"] == sent and out["batcher_stats"]["images"] == sent, out
+        assert out["concurrent"]["requests"] == BENCH_CLIENTS * BENCH_REQUESTS, out
+        assert out["int8"] == (name == "int8"), out
+        assert launches["stem"] > 0 and launches["nms"] > 0, launches
+        if name == "int8":
+            assert launches["int8_conv3"] > 0 and launches["int8_mm"] > 0, launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -1686,6 +1775,9 @@ def main() -> int:
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs, layer_rows)
     kernels.append(probe_row)
+    t = time.perf_counter()
+    bench_path(det, det8)
+    log(f"phase 23's serving bench: {time.perf_counter() - t:.1f} s")
     del det8
     torch.cuda.empty_cache()
     errs["stem_train"] = check_stem_train(dev)
@@ -1705,6 +1797,7 @@ def main() -> int:
     assert mesh.size == 1 and mesh.backend == "nccl", mesh
     kernels += repro_rows(repro_times, repro_path(mesh), errs)
     ref = mesh_path(dev, mesh, det, preds5, train["kern"])
+    dryrun_path(mesh)
     mesh_lib.finalize_distributed()
     del det
     torch.cuda.empty_cache()

@@ -9,9 +9,11 @@ Run it with ``python -m ssdx_torch.serve.app``.  On the GPU the detector
 runs the BN-folded bf16 network with the stem and NMS kernels; with
 ``SSDX_INT8=1`` in the environment the post-stem backbone is quantized to
 int8 and runs through the int8 conv kernels.  Without
-``saved_models/best.weights`` it serves the bundled demo weights, read by
-path from ``ssdx/serve/demo_weights.npz``; the example scenes come from
-``ssdx/serve/static``.
+``saved_models/best.weights`` it serves a demo bundle: the port's own,
+``ssdx_torch/serve/demo_weights.npz``, when ``python -m
+ssdx_torch.tools.make_demo_weights`` has written it, else the JAX package's,
+read by path from ``ssdx/serve/demo_weights.npz``; the example scenes come
+from ``ssdx/serve/static``.
 """
 from __future__ import annotations
 
@@ -27,14 +29,15 @@ import torch
 
 from .. import resolve_device
 
-__all__ = ["CLASS_TO_IDX", "create_detector", "create_server", "main"]
+__all__ = ["CLASS_TO_IDX", "serving_weights", "create_detector", "create_server", "main"]
 
 # Deployment class map of the demo model
 CLASS_TO_IDX = {"biker": 0, "car": 1, "pedestrian": 2, "trafficLight": 3, "truck": 4}
 
 DEFAULT_WEIGHTS = "saved_models/best.weights"
 _SSDX_SERVE = Path(__file__).resolve().parents[2] / "ssdx" / "serve"
-BUNDLED_WEIGHTS = _SSDX_SERVE / "demo_weights.npz"
+BUNDLED_WEIGHTS = _SSDX_SERVE / "demo_weights.npz"  # the JAX package's bundle
+PORT_BUNDLE = Path(__file__).resolve().parent / "demo_weights.npz"  # never committed
 STATIC_DIR = _SSDX_SERVE / "static"
 
 _INDEX_HTML = """<!doctype html>
@@ -97,8 +100,20 @@ the BN-folded weights in bfloat16 on the GPU.</li>
 </body></html>"""
 
 
-def create_detector(weights_path: str | os.PathLike | None = None, device=None):
-    """Build the serving Detector, loading exported weights when present.
+def serving_weights(weights_path: str | os.PathLike | None = None) -> Path | None:
+    """The weights the app serves: ``weights_path`` (default
+    ``DEFAULT_WEIGHTS``) when it exists, else the port's demo bundle, else
+    the JAX package's; None when there are none."""
+    for path in (Path(weights_path or DEFAULT_WEIGHTS), PORT_BUNDLE, BUNDLED_WEIGHTS):
+        if path.exists():
+            return path
+    return None
+
+
+def create_detector(weights_path: str | os.PathLike | None = None, device=None,
+                    width_mult: float = 1.0):
+    """Build the serving Detector, loading exported weights when present
+    (:func:`serving_weights` picks them; ``det.weights_source`` names them).
 
     ``device`` defaults to ``cuda`` (and raises without a GPU).  On the GPU
     the network runs BN-folded in bfloat16 with the fused stem kernel; on
@@ -115,19 +130,19 @@ def create_detector(weights_path: str | os.PathLike | None = None, device=None):
 
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
-    kw = dict(device=dev, stem_kernel=on_gpu,
+    kw = dict(device=dev, stem_kernel=on_gpu, width_mult=width_mult,
               dtype=torch.bfloat16 if on_gpu else torch.float32)
-    weights_path = Path(weights_path or DEFAULT_WEIGHTS)
-    if weights_path.exists() or BUNDLED_WEIGHTS.exists():
-        path = weights_path if weights_path.exists() else BUNDLED_WEIGHTS
+    path = serving_weights(weights_path)
+    if path is not None:
         det = Detector.from_weights(path, CLASS_TO_IDX, **kw)
         det.weights_loaded = True
-        det.demo_weights = path == BUNDLED_WEIGHTS
+        det.demo_weights = path in (PORT_BUNDLE, BUNDLED_WEIGHTS)
     else:
         det = Detector(CLASS_TO_IDX, fold_bn=on_gpu, **kw)
         # random-init weights draw noise boxes: the server says so
         det.weights_loaded = False
         det.demo_weights = False
+    det.weights_source = path
     if os.environ.get("SSDX_INT8") == "1" and det.fold_bn:
         import numpy as np
         from PIL import Image
@@ -191,12 +206,17 @@ def create_server(
             "is randomly initialized and detections are noise.</div>"
         )
     elif getattr(detector, "demo_weights", False):
+        which = ("the port's bundle (<code>ssdx_torch/serve/demo_weights.npz</code>, "
+                 "trained by <code>python -m ssdx_torch.tools.make_demo_weights</code>)"
+                 if getattr(detector, "weights_source", None) == PORT_BUNDLE else
+                 "the JAX package's bundle (<code>ssdx/serve/demo_weights.npz</code>, "
+                 "mAP@0.5&nbsp;&asymp;&nbsp;0.75 held-out)")
         banner = (
             "<div style='background:#b9770e;color:#fff;padding:0.6rem 1rem;"
             "border-radius:6px;margin:0 0 1rem 0'><b>Bundled demo weights.</b> "
-            "Serving the bundled model trained on procedural street scenes "
-            "(the /examples gallery's distribution, mAP@0.5&nbsp;&asymp;&nbsp;0.75 "
-            "held-out) — not the Udacity-trained production model. Drop a real "
+            f"Serving {which}, trained on procedural street scenes "
+            "(the /examples gallery's distribution) — not the Udacity-trained "
+            "production model. Drop a real "
             "export at <code>saved_models/best.weights</code> to replace it.</div>"
         )
     else:

@@ -63,19 +63,24 @@ class MicroBatcher:
         self._q: queue.Queue = queue.Queue()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+        self.warm = threading.Event()  # set once the warm-up has ended
         if warmup:
             # Run every batch bucket once in the background (the first call
             # builds the CUDA kernels); requests arriving meanwhile queue.
             threading.Thread(target=self._warmup_buckets, daemon=True).start()
+        else:
+            self.warm.set()
 
     def _warmup_buckets(self) -> None:
-        for b in self._buckets:
-            try:
+        try:
+            for b in self._buckets:
                 self.detector.predict(
                     np.zeros((b, 300, 300, 3), np.float32),
                     **self.warmup_kwargs)
-            except Exception:
-                return  # warmup is best-effort
+        except Exception:
+            pass  # warmup is best-effort
+        finally:
+            self.warm.set()
 
     # ---- public surface (Detector-compatible) ----
 

@@ -64,19 +64,23 @@ def test_bootstrap_factors_and_indices_equal(toy_dir):
     assert len(got) > 22
 
 
+def _compare_batches(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.count == r.count
+        np.testing.assert_allclose(g.batch.images.numpy(), np.asarray(r.batch.images), atol=2e-5)
+        np.testing.assert_allclose(g.batch.gt_boxes.numpy(), np.asarray(r.batch.gt_boxes),
+                                   atol=1e-5)
+        np.testing.assert_array_equal(g.batch.gt_labels.numpy(), np.asarray(r.batch.gt_labels))
+        np.testing.assert_array_equal(g.batch.gt_valid.numpy(), np.asarray(r.batch.gt_valid))
+
+
 def _compare_epochs(torch_loader, jax_loader, epochs):
     assert len(torch_loader) == len(jax_loader)
     for _ in range(epochs):
         got, ref = list(torch_loader), list(jax_loader)
-        assert len(got) == len(ref) == len(torch_loader)
-        for g, r in zip(got, ref):
-            assert g.count == r.count
-            np.testing.assert_allclose(g.batch.images.numpy(), np.asarray(r.batch.images),
-                                       atol=2e-5)
-            np.testing.assert_allclose(g.batch.gt_boxes.numpy(), np.asarray(r.batch.gt_boxes),
-                                       atol=1e-5)
-            np.testing.assert_array_equal(g.batch.gt_labels.numpy(), np.asarray(r.batch.gt_labels))
-            np.testing.assert_array_equal(g.batch.gt_valid.numpy(), np.asarray(r.batch.gt_valid))
+        assert len(got) == len(torch_loader)
+        _compare_batches(got, ref)
 
 
 def test_train_epoch_order_equals_jax(toy_dir):
@@ -88,6 +92,32 @@ def test_train_epoch_order_equals_jax(toy_dir):
     assert t.max_boxes == j.max_boxes == 11
     _compare_epochs(t, j, epochs=2)
     np.testing.assert_array_equal(t._epoch_indices(), j._epoch_indices())  # epoch 2's order
+
+
+def test_a_loader_built_afresh_replays_epoch_0_as_a_resume_does(toy_dir):
+    """Neither package stores the loader's epoch counter, and train.run builds
+    its loader anew before it resumes from last.ckpt: after two epochs a new
+    loader starts over at epoch 0's permutation of the bootstrap-repeated
+    indices (and epoch 0's augmentation draws), in both packages alike."""
+    kw = dict(batch_size=8, train=True, source_size=40, num_workers=2, seed=11, bootstrap=True,
+              prefetch=False)
+    mk = lambda: DetectionLoader(DetectionDataset(toy_dir), augment_cfg=AugmentConfig(**IDENTITY),
+                                 device="cpu", **kw)
+    t = mk()
+    order0 = t._epoch_indices()
+    epoch0 = list(t)
+    list(t)
+    assert not np.array_equal(t._epoch_indices(), order0)  # the running loader is at epoch 2
+    fresh = mk()
+    np.testing.assert_array_equal(fresh._epoch_indices(), order0)
+    replay = list(fresh)
+    assert len(replay) == len(epoch0) == len(t)
+    for a, b in zip(replay, epoch0):
+        for x, y in zip(a.batch, b.batch):
+            assert torch.equal(x, y)
+    j = JaxLoader(JaxDataset(toy_dir), augment_cfg=JaxAugmentConfig(**IDENTITY), **kw)
+    np.testing.assert_array_equal(j._epoch_indices(), order0)
+    _compare_batches(replay, list(j))
 
 
 def test_eval_order_and_wrapped_tail_equal_jax(toy_dir):
