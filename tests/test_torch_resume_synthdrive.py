@@ -10,6 +10,8 @@ resume is tested by tests/test_torch_tools_train.py.)
 """
 import sys
 
+import pytest
+
 from ssdx_torch.tools import resume_synthdrive
 
 STAND_IN = '''
@@ -55,3 +57,33 @@ def test_kill_once_the_checkpoint_holds_one_epoch_then_resume(tmp_path, capfd, m
         "Epoch: 1  |  mAP: 0.5",
         "done",
     ], out
+
+
+def test_kill_each_resumed_run_in_turn(tmp_path, capfd, monkeypatch):
+    tool = tmp_path / "stand_in.py"
+    tool.write_text(STAND_IN)
+    monkeypatch.setattr(resume_synthdrive, "GRACE_S", 0.0)
+    monkeypatch.setattr(resume_synthdrive, "_command",
+                        lambda args: [sys.executable, "-u", str(tool), *args])
+    wd = tmp_path / "sd"
+    rc = resume_synthdrive.main(["--kill-after", "1", "2", "--",
+                                 "--workdir", str(wd), "--epochs", "3"])
+    out = capfd.readouterr().out
+    assert rc == 0, out
+    last = wd / "ckpt" / "last.ckpt"
+    assert out.splitlines() == [
+        "Epoch: 0  |  mAP: 0.5",
+        "killed with SIGKILL (rc -9); last.ckpt holds 1 epochs",
+        f"resumed from {last}: 1 epochs done, 2 of 3 remaining",
+        "Epoch: 1  |  mAP: 0.5",
+        "killed with SIGKILL (rc -9); last.ckpt holds 2 epochs",
+        f"resumed from {last}: 2 epochs done, 1 of 3 remaining",
+        "Epoch: 2  |  mAP: 0.5",
+        "done",
+    ], out
+
+
+@pytest.mark.parametrize("kills", [["2", "1"], ["0"], ["3", "3"]])
+def test_kill_points_must_increase_from_one(kills, tmp_path):
+    with pytest.raises(SystemExit):
+        resume_synthdrive.main(["--kill-after", *kills, "--", "--workdir", str(tmp_path)])
