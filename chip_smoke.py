@@ -45,7 +45,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the stem kernel's forward + backward beside its plain version, its
      library yardstick (cuDNN) and its bound; and its device time by launch
      (tools/profile_stem.py, traced right after phase 11, where the
-     profiler keeps its records), each launch beside its own bound;
+     profiler keeps its records), each launch beside its own bound, with
+     cuDNN's conv1_1 forward and weight gradient beside the two K = 27
+     launches (conv1_stats, dw1); the stem_train row of the kernels line
+     carries that split;
  11. the int8 conv kernel (csrc/int8_conv.cu, TMA + wgmma) against its plain
      version, bit for bit (int8 output and bf16 tap), at full width and bs=32 on one
      layer of each geometry: ConvBNRelu_2 (150x150, 64->128), _9 (38x38,
@@ -582,7 +585,21 @@ def stem_train_bound(B):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), ops, nbytes
 
 
-def train_timing(dev, launches, err, split_lines) -> dict:
+def b3_split_row(split, library) -> dict | None:
+    """Phase 10's per-launch split of B3 for the kernels line: device ms,
+    launches per forward + backward and bound of each named launch, and
+    beside conv1_stats and dw1 the device ms of cuDNN's conv1_1 forward and
+    weight gradient alone."""
+    if split is None:
+        return None
+    row = {k: {"ms": v["ms"], "per_call": v["launches"], "bound_ms": v["bound_ms"]}
+           for k, v in split.items() if isinstance(v, dict) and v["bound_ms"] is not None}
+    row["conv1_stats"]["library_ms"] = library["conv1_1 forward"]["device_ms"]
+    row["dw1"]["library_ms"] = library["conv1_1 weight gradient"]["device_ms"]
+    return row
+
+
+def train_timing(dev, launches, err, split_lines, split) -> dict:
     batches = [train_batch(dev, 10 + i) for i in range(4)]
     step_ms = {}
     for label, fused in (("kernel", True), ("plain", False), ("plain", False),
@@ -642,7 +659,7 @@ def train_timing(dev, launches, err, split_lines) -> dict:
         "name": "stem_train", "route": "cuda", "source": "ssdx_torch/csrc/stem_train.cu",
         "replaces": "ssdx/ops/pallas_stem_train.py:718", "launches": launches["stem_train"],
         "max_abs_err": err["max_abs_err"], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": lib_ms,
+        "bound_by": bound_by, "library_ms": lib_ms, "split": split,
     }
 
 
@@ -1780,8 +1797,9 @@ def main() -> int:
     probe_row = int8_probe()
     repro_times = repro_timing(dev)
     layer_rows = int8_layer_timing(dev)
-    b3_split = []  # phase 10's split of the stem_train launches, printed there
-    profile_stem.b3_split(TRAIN_BS, log=b3_split.append)
+    b3_lines = []  # phase 10's split of the stem_train launches, printed there
+    b3_split = b3_split_row(profile_stem.b3_split(TRAIN_BS, log=b3_lines.append),
+                            profile_stem.b3_library(TRAIN_BS, log=b3_lines.append))
     brp_lines = []  # phase 16's split of the bn_relu_pool launches, printed there
     brp_split = profile_split.brp_split(log=brp_lines.append)
     launches8 = int8_path(det, det8)
@@ -1795,7 +1813,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     errs["stem_train"] = check_stem_train(dev)
     train = train_path(dev)
-    kernels.append(train_timing(dev, train["launches"], errs["stem_train"], b3_split))
+    kernels.append(train_timing(dev, train["launches"], errs["stem_train"], b3_lines, b3_split))
     errs["pool"], errs["brp"] = check_pool(dev), check_brp(dev)
     tool = tool_path()
     kernels += pool_brp_timing(dev, tool["launches"], errs, brp_split, brp_lines)

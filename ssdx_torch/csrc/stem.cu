@@ -20,7 +20,8 @@
 // 300x300x64 intermediates (y1 and the conv1_2 output, 23 MB per image in
 // bf16) never go to device memory.
 //
-// Design (stem_sm90.cuh has the shared conv core): a persistent grid of one
+// Design (stem_sm90.cuh has the shared conv core and conv1_1's window,
+// im2col and contraction, which B3 builds too): a persistent grid of one
 // block per SM, two consumer warpgroups, walks the tiles of 4 conv rows by
 // 62 columns (2 x 31 pooled pixels) of every image, tile blockIdx.x,
 // + gridDim.x, ...  The weights go to shared memory once per block, in the
@@ -48,10 +49,7 @@ using namespace stem90;
 
 constexpr int kThreads = 256;
 constexpr int kXRows = HR + 2;                // 8 input rows
-constexpr int kXCols = HW + 2;                // 66 input columns
-constexpr int kXWords = kXCols * 3 / 2;       // 99 four-byte words a row
-constexpr int kXLd = 400;                     // bytes per staged input row
-constexpr int kXBytes = kXRows * kXLd;        // 3,200
+constexpr int kXBytes = kXRows * X_LD;        // 3,200
 constexpr int kImLd = HALO_PIX;               // im2col pixels between its 4 k-chunks
 constexpr int kPooled = TW / 2;               // 31 pooled columns a tile
 constexpr int kPStage = 32 * STAGE_LD;        // pooled staging per warpgroup
@@ -66,41 +64,17 @@ constexpr int kOffBias = kOffStage + 2 * kPStage;
 constexpr int kSmem = kOffBias + 2 * C * 4 + 1024;   // + alignment
 static_assert(kOffHalo % 16 == 0 && kOffIm % 16 == 0 && kOffStage % 16 == 0, "alignment");
 
-// Copy the input window of tile t (rows r0-2 .. r0+5, columns c0-2 .. c0+63,
-// 3 channels) to `xs` with 4-byte cp.async, zeros outside the image.  c0 is
-// even, so the image's edges fall on word boundaries.
-__device__ __forceinline__ void load_x(const __nv_bfloat16* __restrict__ x, int t,
-                                       unsigned char* xs) {
+// The input window of tile t, rows r0-2 .. r0+5 (the y1 halo's rows and
+// theirs), into `xs`; the core's conv1_1 helpers do the rest.
+__device__ __forceinline__ void load_window(const __nv_bfloat16* __restrict__ x, int t,
+                                            unsigned char* xs) {
   const Tile T = tile_of(t);
-  for (int v = threadIdx.x; v < kXRows * kXWords; v += kThreads) {
-    const int xr = v / kXWords, wi = v % kXWords;
-    const int gr = T.r0 - 2 + xr, col = T.c0 - 2 + (2 * wi) / 3;
-    const bool valid = gr >= 0 && gr < H && col >= 0 && col < W;
-    const long long e = (((long long)T.b * H + gr) * W + (T.c0 - 2)) * 3 + 2 * wi;
-    cp_async4(xs + xr * kXLd + wi * 4, valid ? x + e : x, valid);
-  }
+  stem90::load_x<kXRows, kThreads>(x, T.b, T.r0 - 2, T.c0, xs);
 }
 
-// im2col of the 6 x 64 y1 halo pixels from the staged window: chunk c
-// (K = 8c .. 8c + 7 of K = (dr*3 + dc)*3 + ci, 27..31 zero) of pixel p at
-// (c * kImLd + p) * 16 bytes, for chunks C0 .. C1 - 1.
 template <int C0 = 0, int C1 = 4>
-__device__ __forceinline__ void build_im2col(const unsigned char* xcur, unsigned char* im) {
-  const __nv_bfloat16* xsb = reinterpret_cast<const __nv_bfloat16*>(xcur);
-#pragma unroll
-  for (int c = C0; c < C1; ++c) {
-    for (int p = threadIdx.x; p < HALO_PIX; p += kThreads) {
-      const int hr = p >> 6, hc = p & 63;
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int k = 8 * c + e;
-        v[e] = k < 27 ? xsb[(hr + k / 9) * (kXLd / 2) + (hc + (k / 3) % 3) * 3 + k % 3]
-                      : __float2bfloat16(0.0f);
-      }
-      *reinterpret_cast<int4*>(im + (c * kImLd + p) * 16) = *reinterpret_cast<const int4*>(v);
-    }
-  }
+__device__ __forceinline__ void halo_im2col(const unsigned char* xcur, unsigned char* im) {
+  stem90::build_im2col<HR, kThreads, C0, C1>(xcur, im, threadIdx.x);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -122,11 +96,7 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   unsigned char* stage = smem + kOffStage + wg * kPStage;
 
   stage_weights(w2, w2s);
-  {
-    const int4* src = reinterpret_cast<const int4*>(w1);  // [64][32] bf16: 4 chunks a row
-    for (int v = tid; v < C * 4; v += kThreads)
-      *reinterpret_cast<int4*>(w1s + (v & 3) * 1024 + (v >> 2) * 16) = src[v];
-  }
+  stage_w1<kThreads>(w1, w1s);
   zero_halo_pad(halo);
   if (tid < C) {
     b1s[tid] = b1[tid];
@@ -134,12 +104,12 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   }
   // Prologue: tile blockIdx.x's window and im2col, the next window in flight.
   const int ntiles = B * TILES;
-  if ((int)blockIdx.x < ntiles) load_x(x, blockIdx.x, xs);
+  if ((int)blockIdx.x < ntiles) load_window(x, blockIdx.x, xs);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  build_im2col(xs, im);
-  if ((int)(blockIdx.x + gridDim.x) < ntiles) load_x(x, blockIdx.x + gridDim.x, xs + kXBytes);
+  halo_im2col(xs, im);
+  if ((int)(blockIdx.x + gridDim.x) < ntiles) load_window(x, blockIdx.x + gridDim.x, xs + kXBytes);
   cp_async_commit();
   sm90::fence_proxy_async();
   __syncthreads();
@@ -161,23 +131,7 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
     // ---- conv1_1 on the tensor cores: pixels 192*wg .. +191 as M, co as N ----
     {
       float a1[3][32];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          a1[i][j] = 0.0f;
-          sm90::fence_operand(a1[i][j]);
-        }
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const uint64_t da = desc0(ima + (2 * s * kImLd + 64 * (3 * wg + i)) * 16, kImLd * 16, 128);
-          const uint64_t db = desc0(w1a + 2 * s * 1024, 1024, 128);
-          wgmma_64<0, 0>(a1[i], da, db);
-        }
-      sm90::wgmma_commit();
+      conv1_1<3>(a1, ima, w1a, kImLd, 3 * wg);
       sm90::wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -222,12 +176,12 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
     if (next < ntiles) {
       cp_async_wait_all();
       __syncthreads();  // its window is in (every thread's copies)
-      build_im2col<0, 2>(xn, im);
+      halo_im2col<0, 2>(xn, im);
     }
     conv_taps<3, 6>(acc, w2a, ha, wg);
     if (next < ntiles) {
-      build_im2col<2, 4>(xn, im);
-      if (next + (int)gridDim.x < ntiles) load_x(x, next + gridDim.x, xs + (it & 1) * kXBytes);
+      halo_im2col<2, 4>(xn, im);
+      if (next + (int)gridDim.x < ntiles) load_window(x, next + gridDim.x, xs + (it & 1) * kXBytes);
       cp_async_commit();
       sm90::fence_proxy_async();
     }

@@ -2,7 +2,9 @@
 // convolution at 300^2 as an implicit GEMM on wgmma.  Included by stem.cu
 // (B2, the serving stem: conv1_2) and stem_train.cu (B3: stage2<0>, the
 // forward conv1_2; stage2<1>, its data gradient with the flipped weights;
-// dw2, its weight gradient).
+// dw2, its weight gradient).  Beside it, conv1_1's input window and im2col
+// (K = 27 padded to 32) and its m64n64k16 contraction, which B2 builds for
+// its y1 halo and B3 for conv1_stats and dw1 (see load_x below).
 //
 // The GEMM is transposed against the usual im2col form: M is the 64
 // output channels, with the weights as the A operand [64][576] (K = tap *
@@ -97,8 +99,8 @@ __device__ __forceinline__ void zero_halo_pad(unsigned char* halo) {
   }
 }
 
-// wgmma m64n64k16, bf16 in, f32 accumulated; TA / TB: the operand is
-// MN-major (1) or K-major (0).
+// wgmma m64n64k16 and m64n32k16, bf16 in, f32 accumulated; TA / TB: the
+// operand is MN-major (1) or K-major (0).
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -111,6 +113,18 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -204,6 +218,94 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+
+// ------------------------------------------------------------ conv1_1
+// conv1_1 (3 -> 64 channels) runs on the tensor cores from an im2col: a
+// window of input rows is staged, and ROWS x 64 im2col pixels are built from
+// it, pixel p = hr * 64 + hc reading window rows hr .. hr + 2 and columns
+// hc .. hc + 2.  With the window's columns from c0 - 2, pixel hc is image
+// column c0 - 1 + hc: B2 builds the y1 halo of its tile (ROWS = HR, window
+// rows from r0 - 2), B3 the tile's own rows (ROWS = TR, window rows from
+// r0 - 1), whose pixels are hc = 1 .. 62.
+constexpr int X_COLS = HW + 2;                 // 66 input columns
+constexpr int X_WORDS = X_COLS * 3 / 2;        // 99 four-byte words a row
+constexpr int X_LD = 400;                      // bytes per staged input row
+
+// Copy XROWS input rows xr0 .. of image b, columns c0 - 2 .. c0 + 63, 3
+// channels, to `xs` with 4-byte cp.async (NT threads), zeros outside the
+// image.  x's 1,800-byte rows are not 16-byte aligned, so no wider copy or
+// TMA tile fits; c0 is even, so the image's edges fall on word boundaries.
+template <int XROWS, int NT>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* __restrict__ x, int b, int xr0, int c0,
+                                       unsigned char* xs) {
+  for (int v = threadIdx.x; v < XROWS * X_WORDS; v += NT) {
+    const int xr = v / X_WORDS, wi = v % X_WORDS;
+    const int gr = xr0 + xr, col = c0 - 2 + (2 * wi) / 3;
+    const bool valid = gr >= 0 && gr < H && col >= 0 && col < W;
+    const long long e = (((long long)b * H + gr) * W + (c0 - 2)) * 3 + 2 * wi;
+    cp_async4(xs + xr * X_LD + wi * 4, valid ? x + e : x, valid);
+  }
+}
+
+// im2col of ROWS x 64 pixels from the staged window, by NT threads of
+// which this is thread t: chunk c (K = 8c .. 8c + 7 of K = (dr*3 + dc)*3 +
+// ci, 27..31 zero) of pixel p at (c * ROWS * 64 + p) * 16 bytes, for chunks
+// C0 .. C1 - 1.
+template <int ROWS, int NT, int C0 = 0, int C1 = 4>
+__device__ __forceinline__ void build_im2col(const unsigned char* xcur, unsigned char* im, int t) {
+  const __nv_bfloat16* xsb = reinterpret_cast<const __nv_bfloat16*>(xcur);
+#pragma unroll
+  for (int c = C0; c < C1; ++c) {
+    for (int p = t; p < ROWS * HW; p += NT) {
+      const int hr = p >> 6, hc = p & 63;
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = 8 * c + e;
+        v[e] = k < 27 ? xsb[(hr + k / 9) * (X_LD / 2) + (hc + (k / 3) % 3) * 3 + k % 3]
+                      : __float2bfloat16(0.0f);
+      }
+      *reinterpret_cast<int4*>(im + (c * ROWS * HW + p) * 16) = *reinterpret_cast<const int4*>(v);
+    }
+  }
+}
+
+// Stage w1 [64][32] bf16 ([co][(dr*3 + dc)*3 + ci], 27..31 zero) as the B
+// operand, K-major: chunk kc of row co at kc * 1024 + co * 16.
+template <int NT>
+__device__ __forceinline__ void stage_w1(const __nv_bfloat16* __restrict__ w1, unsigned char* w1s) {
+  const int4* src = reinterpret_cast<const int4*>(w1);  // 4 chunks a row
+  for (int v = threadIdx.x; v < C * 4; v += NT)
+    *reinterpret_cast<int4*>(w1s + (v & 3) * 1024 + (v >> 2) * 16) = src[v];
+}
+
+// conv1_1 of im2col pixels 64 * m0 .. 64 * (m0 + NI) - 1 (an im2col of ld
+// pixels a chunk): pixels as M, the 64 output channels as N, 2 k-steps,
+// both operands K-major; issued and committed, the caller waits
+// (sm90::wgmma_wait<0>).  a[i][4j + 2h + e] holds pixel 64 * (m0 + i) +
+// 16 * warp + lane / 4 + 8h at channel 8j + 2 * (lane % 4) + e.
+template <int NI>
+__device__ __forceinline__ void conv1_1(float (&a)[NI][32], uint32_t im, uint32_t w1s, int ld,
+                                        int m0) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      a[i][j] = 0.0f;
+      sm90::fence_operand(a[i][j]);
+    }
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const uint64_t da = desc0(im + (2 * s * ld + 64 * (m0 + i)) * 16, ld * 16, 128);
+      const uint64_t db = desc0(w1s + 2 * s * 1024, 1024, 128);
+      wgmma_64<0, 0>(a[i], da, db);
+    }
+  sm90::wgmma_commit();
 }
 
 }  // namespace stem90

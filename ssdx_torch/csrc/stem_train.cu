@@ -12,7 +12,9 @@
 //
 // Launches (the two BN barriers force them; the per-channel glue between
 // them -- sums -> mean, var, inv and the affine vectors -- is PyTorch):
-//   forward   conv1_stats  y1 = bf16(conv1_1(x) + b1), per-block sum/sumsq
+//   forward   conv1_stats  y1 = bf16(conv1_1(x) + b1) on wgmma from an
+//                          im2col (K = 27 padded to 32), per-block
+//                          sum/sumsq of the rounded y1
 //             stage2<0>    y1n = bf16(relu(y1*a1 + c1)) on a haloed tile in
 //                          shared memory (written out for dw2), conv1_2 on
 //                          the wgmma core of stem_sm90.cuh, y2 = bf16(acc +
@@ -28,8 +30,9 @@
 //             dw2          dW2 = sum over pixels of y1n^T dy2: wgmma with
 //                          M = (tap, ci), N = co, K = pixels, split over
 //                          one slice of tiles per block
-//             dw1          dy1 = bf16(BN1 backward); dW1 = patches^T dy1 in
-//                          f32 FMAs, one slice of rows per block
+//             dw1          dy1 = bf16(BN1 backward); dW1 = dy1^T patches:
+//                          wgmma with M = co, N = 32 (K = 27 padded), K =
+//                          pixels, split over one slice of tiles per block
 //             colsum       every cross-block reduction: per-block partial
 //                          rows summed in a fixed order (no atomics, so two
 //                          runs give the same statistics and gradients)
@@ -40,20 +43,30 @@
 // bound by operations.  This design also moves y1, y2, dt2, dt1 and the
 // dw2 operands y1n and dy2 (184 MB each) through device memory across the
 // BN barriers, each written once and read once to three times, about 2 GB
-// (0.6 ms).
+// (0.6 ms).  Per launch the two K = 27 ones are bound by those bytes:
+// conv1_stats writes y1 and reads x (193 MB, 0.058 ms; its 5 GFLOP take
+// 0.005 ms), dw1 reads dt1, y1 and x (377 MB, 0.113 ms).
 //
-// The three 64 -> 64 contractions (stage2<0>, stage2<1>, dw2) run on
-// wgmma: persistent blocks of one per SM walk the core's tiles of 4 conv
-// rows x 62 columns (stem_sm90.cuh), the weights staged once per block; in
-// stage2 each thread fetches the next tile's halo into registers while the
-// tensor cores work on this one, between groups of taps, and stage2<1>
-// copies the y1 it needs for the ReLU mask into shared memory with
-// cp.async in the same window; both write their operand on the tile's own
-// pixels (y1n, dy2), which dw2 copies instead of recomputing.  The
-// per-block statistics are summed per thread over the block's tiles, then
-// over lanes and warpgroups in a fixed order, and by colsum across blocks.
-// The 3-channel conv1_1 and its weight gradient (dw1) stay as f32 FMAs on
-// the CUDA cores.
+// Every launch that contracts runs on wgmma with persistent blocks of one
+// per SM walking the core's tiles of 4 conv rows x 62 columns
+// (stem_sm90.cuh).  stage2<0>, stage2<1> and dw2: the weights staged once
+// per block; in stage2 each thread fetches the next tile's halo into
+// registers while the tensor cores work on this one, between groups of
+// taps, and stage2<1> copies the y1 it needs for the ReLU mask into shared
+// memory with cp.async in the same window; both write their operand on the
+// tile's own pixels (y1n, dy2), which dw2 copies instead of recomputing.
+// conv1_stats and dw1 (four warpgroups, one tile row each) build conv1_1's
+// im2col of the tile's 4 x 64 pixel slots (slot hc at column c0 - 1 + hc,
+// hc = 1 .. 62 the tile's own) from an input window that cp.async brings one
+// tile ahead, as B2 does: conv1_stats writes y1 through a staging row with
+// 16-byte stores while the next tile's im2col is built beside the tensor
+// cores; dw1 brings the next tile's dt1 and y1 rows by bulk copies on an
+// mbarrier (with per-thread cp.async of 16 bytes a pixel chunk it took 0.28
+// ms) while it turns this tile's into the dy1 operand.  Measured
+// at B = 16 on an H100 80GB HBM3 at 700 W (PERF.md): conv1_stats
+// 0.104-0.107 ms, dw1 0.174-0.178 ms.  The per-block statistics are summed
+// per thread over the block's tiles, then over lanes, warps and warpgroups
+// in a fixed order, and by colsum across blocks.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -65,7 +78,6 @@ namespace {
 constexpr int kH = 300, kW = 300, kC = 64;
 constexpr int kPH = kH / 2, kPW = kW / 2;
 constexpr int kThreads = 256;
-constexpr int kXW = kW + 2;                       // one input row with SAME padding
 constexpr int kVecRows = 16;                      // per-channel vectors handed in
 constexpr size_t kVecBytes = kVecRows * kC * 4;   // 4096
 
@@ -87,11 +99,35 @@ constexpr size_t kW2OffDy = stem90::HALO_BYTES;
 constexpr size_t kW2Buf = kW2OffDy + 8 * kDyLd * 16;
 constexpr size_t kW2Smem = 2 * kW2Buf + 1024;
 
-// dw1 shared memory
-constexpr size_t kF_X = 3 * kXW * 3;                    // floats
-constexpr size_t kF_Dy = kW * kC;                       // floats
-constexpr size_t kF_Vec = 5 * kC;                       // floats
-constexpr size_t kF_Smem = (kF_X + kF_Dy + kF_Vec) * 4; // 88952
+// conv1_stats and dw1: four warpgroups, one tile row each, on conv1_1's
+// im2col of a tile's 4 x 64 pixel slots
+constexpr int kWide = 4 * 128;
+constexpr int kImPix = stem90::TR * stem90::HW;                 // 256
+constexpr int kImBytes = 4 * kImPix * 16;                       // 16,384
+constexpr int kXBytes = (stem90::TR + 2) * stem90::X_LD;        // 2,400: input window
+// conv1_stats shared memory: w1, two im2cols, two windows, a staging row
+// per warpgroup, the block's sums by warp
+constexpr int kC1Stage = stem90::HW * stem90::STAGE_LD;        // 9,216
+constexpr size_t kC1OffIm = 4 * kC * 16;
+constexpr size_t kC1OffX = kC1OffIm + 2 * kImBytes;
+constexpr size_t kC1OffStage = kC1OffX + 2 * kXBytes;
+constexpr size_t kC1OffRed = kC1OffStage + 4 * kC1Stage;
+constexpr size_t kC1Smem = kC1OffRed + 16 * 2 * kC * 4 + 1024;  // + alignment
+// dw1 shared memory: two buffers of a tile's dt1 and y1 ([slot][64
+// channels], as the bulk copies bring its rows) and its input window; the
+// dy1 operand; the im2col; warpgroups 1-3's sums; the buffers' mbarriers
+constexpr size_t kF_Map = kImPix * kC * 2;                      // 32,768
+constexpr size_t kF_OffY = kF_Map;
+constexpr size_t kF_OffX = 2 * kF_Map;
+constexpr size_t kF_Buf = kF_OffX + kXBytes;
+constexpr size_t kF_OffDy = 2 * kF_Buf;
+constexpr size_t kF_OffIm = kF_OffDy + 8 * kDyLd * 16;
+constexpr size_t kF_OffRed = kF_OffIm + kImBytes;
+constexpr size_t kF_OffBar = kF_OffRed + 3 * kC * 32 * 4;
+constexpr size_t kF_Smem = kF_OffBar + 2 * 8 + 1024;            // + alignment
+static_assert(kC1OffStage % 16 == 0 && kF_Buf % 16 == 0 && kF_OffDy % 16 == 0 &&
+              kF_OffIm % 16 == 0 && kF_OffBar % 8 == 0, "alignment");
+static_assert(kF_Smem <= 232448, "dw1 fits the 227 KB a block may use");
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -128,19 +164,6 @@ __device__ __forceinline__ size_t pix_off(int b, int r, int c) {
   return (((size_t)b * kH + r) * kW + c) * kC;
 }
 
-// Stage the three input rows r-1 .. r+1 (zero outside the image) as f32.
-__device__ __forceinline__ void stage_x_rows(const __nv_bfloat16* __restrict__ x, int b, int r,
-                                             float* xs) {
-  for (int v = threadIdx.x; v < 3 * kXW * 3; v += blockDim.x) {
-    const int ci = v % 3, col = (v / 3) % kXW, dr = v / (3 * kXW);
-    const int gr = r - 1 + dr, gc = col - 1;
-    float val = 0.0f;
-    if (gr >= 0 && gr < kH && gc >= 0 && gc < kW)
-      val = __bfloat162float(x[(((size_t)b * kH + gr) * kW + gc) * 3 + ci]);
-    xs[v] = val;
-  }
-}
-
 // Reduce per-thread (8 channels of group tid & 7) sum / second sums to one
 // partial row [2][64] of this block, in a fixed order.
 __device__ __forceinline__ void block_partials_cg8(const float* s, const float* q, float* red,
@@ -161,56 +184,158 @@ __device__ __forceinline__ void block_partials_cg8(const float* s, const float* 
 }
 
 // ------------------------------------------------------------ forward A
+//
+// conv1_stats: block j takes tiles j, j + grid, ... of the core's tiling.
+// A tile's conv1_1 is 4 m64n64k16 tiles (pixels as M, the 64 channels as N,
+// K = 32) of 2 k-steps, one tile row per warpgroup, from the im2col of the
+// tile's 4 x 64 slots; w1 [64][32] bf16 is B2's operand.  The epilogue adds
+// b1 in f32, rounds to bf16, sums the rounded values and their squares per
+// thread (slots that are the tile's own pixels only), and stores y1 through
+// a staging row [slot][64 channels] so that each pixel's 128 bytes leave as
+// eight 16-byte stores from neighbouring threads.  Four warpgroups, not
+// two, so that the per-tile work (im2col, epilogue, stores) has 16 warps to
+// hide its latencies.
 
-__global__ void __launch_bounds__(kThreads)
-conv1_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w1,
+// Slot hc of an im2col row of tile T: one of the tile's own pixels?
+__device__ __forceinline__ bool own_pixel(const stem90::Tile& T, int hc) {
+  return hc >= 1 && hc <= stem90::TW && T.c0 - 1 + hc < kW;
+}
+
+// The input window of tile t: rows r0-1 .. r0+4, columns c0-2 .. c0+63.
+__device__ __forceinline__ void conv1_window(const __nv_bfloat16* __restrict__ x, int t,
+                                             unsigned char* xs) {
+  const stem90::Tile T = stem90::tile_of(t);
+  stem90::load_x<stem90::TR + 2, kWide>(x, T.b, T.r0 - 1, T.c0, xs);
+}
+
+// The tile's im2col from its window: two of the four chunks a thread.
+__device__ __forceinline__ void conv1_im2col(const unsigned char* xs, unsigned char* im) {
+  const int tid = threadIdx.x;
+  if (tid < kImPix)
+    stem90::build_im2col<stem90::TR, kImPix, 0, 2>(xs, im, tid);
+  else
+    stem90::build_im2col<stem90::TR, kImPix, 2, 4>(xs, im, tid - kImPix);
+}
+
+__global__ void __launch_bounds__(kWide, 1)
+conv1_stats_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
                    const float* __restrict__ b1, __nv_bfloat16* __restrict__ y1,
                    float* __restrict__ part, int B) {
-  __shared__ float xs[3 * kXW * 3];
-  __shared__ float w1s[27 * kC];
-  __shared__ float b1s[kC];
-  __shared__ float red[kThreads * 16];
-  const int tid = threadIdx.x, cg = tid & 7;
-  for (int v = tid; v < 27 * kC; v += kThreads) w1s[v] = w1[v];
-  if (tid < kC) b1s[tid] = b1[tid];
-  float s[8], q[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] = q[k] = 0.0f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  unsigned char* im = smem + kC1OffIm;
+  unsigned char* xs = smem + kC1OffX;
+  float* red = reinterpret_cast<float*>(smem + kC1OffRed);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* stage = smem + kC1OffStage + wg * kC1Stage;
+  stem90::stage_w1<kWide>(w1, smem);
 
-  for (int row = blockIdx.x; row < B * kH; row += gridDim.x) {
-    const int b = row / kH, r = row % kH;
-    __syncthreads();  // the previous row's readers of xs are done
-    stage_x_rows(x, b, r, xs);
-    __syncthreads();
-    // item = (pixel, 8-channel group); 256 % 8 == 0 keeps cg fixed per thread
-    for (int item = tid; item < kW * 8; item += kThreads) {
-      const int px = item >> 3;
-      float acc[8];
+  float b1r[16], s[16], sq[16];  // at this thread's channels 8j + 2q + e: [2j + e]
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] = b1s[cg * 8 + k];
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc)
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci) {
-            const float xv = xs[(dr * kXW + px + dc) * 3 + ci];
-            const float* wr = w1s + ((dr * 3 + dc) * 3 + ci) * kC + cg * 8;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) acc[k] = fmaf(xv, wr[k], acc[k]);
-          }
-      float out[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        out[k] = round_bf16(acc[k]);  // statistics of the rounded y1
-        s[k] += out[k];
-        q[k] += out[k] * out[k];
-      }
-      store8(y1 + pix_off(b, r, px) + cg * 8, out);
+    for (int e = 0; e < 2; ++e) {
+      b1r[2 * j + e] = b1[8 * j + 2 * q + e];
+      s[2 * j + e] = sq[2 * j + e] = 0.0f;
     }
+
+  // Prologue: tile blockIdx.x's window and im2col, the next window in flight.
+  const int ntiles = B * stem90::TILES;
+  if ((int)blockIdx.x < ntiles) conv1_window(x, blockIdx.x, xs);
+  stem90::cp_async_commit();
+  stem90::cp_async_wait_all();
+  __syncthreads();
+  conv1_im2col(xs, im);
+  if ((int)(blockIdx.x + gridDim.x) < ntiles) conv1_window(x, blockIdx.x + gridDim.x, xs + kXBytes);
+  stem90::cp_async_commit();
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t w1a = sm90::smem_u32(smem), ima = sm90::smem_u32(im);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    // This tile's im2col is in buffer it & 1; the next tile's window is in
+    // flight in buffer (it + 1) & 1.
+    const stem90::Tile T = stem90::tile_of(tile);
+    float a1[1][32];
+    stem90::conv1_1<1>(a1, ima + (it & 1) * kImBytes, w1a, kImPix, wg);
+    // The next tile's im2col while the tensor cores run, then the window after it.
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      stem90::cp_async_wait_all();
+      __syncthreads();  // its window is in (every thread's copies)
+      conv1_im2col(xs + ((it + 1) & 1) * kXBytes, im + ((it + 1) & 1) * kImBytes);
+      if (next + (int)gridDim.x < ntiles)
+        conv1_window(x, next + gridDim.x, xs + (it & 1) * kXBytes);
+      stem90::cp_async_commit();
+      sm90::fence_proxy_async();
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sm90::fence_operand(a1[0][j]);
+
+    // + b1, bf16, the sums of the rounded values -> staging row (slot, then
+    // channels; a tile (8 slots, chunk j) as its 8 rows of 16 bytes)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p0 = 16 * warp + 8 * h;  // slot of this 8-pixel group
+      const bool own = own_pixel(T, p0 + (lane >> 2));
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        uint32_t rr[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = j0 + m;
+          const float v0 = round_bf16(a1[0][4 * j + 2 * h] + b1r[2 * j]);
+          const float v1 = round_bf16(a1[0][4 * j + 2 * h + 1] + b1r[2 * j + 1]);
+          if (own) {
+            s[2 * j] += v0;
+            sq[2 * j] += v0 * v0;
+            s[2 * j + 1] += v1;
+            sq[2 * j + 1] += v1 * v1;
+          }
+          rr[m] = stem90::pack_bf16x2(v0, v1);
+        }
+        stem90::stmatrix_x4(stage + (p0 + (lane & 7)) * stem90::STAGE_LD + (j0 + (lane >> 3)) * 16,
+                            rr);
+      }
+    }
+    sm90::named_barrier(1 + wg, 128);
+    for (int v = t; v < stem90::HW * 8; v += 128) {
+      const int hc = v >> 3, c = v & 7;
+      if (own_pixel(T, hc))
+        *reinterpret_cast<int4*>(y1 + pix_off(T.b, T.r0 + wg, T.c0 - 1 + hc) + c * 8) =
+            *reinterpret_cast<const int4*>(stage + hc * stem90::STAGE_LD + c * 16);
+    }
+    __syncthreads();  // the next im2col is written; this tile's wgmmas and staging reads are done
+  }
+  stem90::cp_async_wait_all();
+
+  // ---- the block's partial sums, fixed order: lanes, then warps and warpgroups ----
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+      sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], o);
+    }
+  if (lane < 4) {
+    float* r = red + (wg * 4 + warp) * 2 * kC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        r[8 * j + 2 * q + e] = s[2 * j + e];
+        r[kC + 8 * j + 2 * q + e] = sq[2 * j + e];
+      }
   }
   __syncthreads();
-  block_partials_cg8(s, q, red, part + (size_t)blockIdx.x * 2 * kC);
+  if (tid < 2 * kC) {
+    float acc = 0.0f;
+    for (int g = 0; g < 16; ++g) acc += red[g * 2 * kC + tid];
+    part[(size_t)blockIdx.x * 2 * kC + tid] = acc;
+  }
 }
 
 // ------------------------------------------- forward B / backward E (stage 2)
@@ -666,61 +791,135 @@ dw2_kernel(const __nv_bfloat16* __restrict__ y1n, const __nv_bfloat16* __restric
 
 // ---------------------------------------------------------- backward dW1
 //
-// vec rows: 0 ginv1, 1 mu1, 2 inv1, 3 S1_1/n, 4 S2_1/n.  Block j takes image
-// rows j, j + grid, ...: dy1 of the row (bf16 values) goes to shared memory,
-// then thread (g = tid >> 6, co = tid & 63) accumulates dW1[k][co] for
-// k = g, g + 4, ... < 27, k = (dr*3 + dc)*3 + ci.
+// vec rows: 0 ginv1, 1 mu1, 2 inv1, 3 S1_1/n, 4 S2_1/n.  Block j accumulates
+// dW1 over tiles j, j + grid, ... as one m64n32 accumulator split over its
+// four warpgroups: M = co with A = dy1 MN-major (chunk-major [8][kDyLd]
+// [16 B] as dw2 stages dy2), N = the 32 patch values (27 and 5 zeros) with
+// B = conv1_1's im2col MN-major ([4 chunks][256 pixels][16 B]), K = the
+// tile's 256 pixel slots, warpgroup wg taking the 4 k-steps of tile row wg.
+// A tile's dt1 and y1 rows (62 or 52 pixels of 128 bytes, contiguous in
+// device memory) come one tile ahead by bulk copies on the buffer's
+// mbarrier, which keep the copy off the threads' instruction stream, and
+// its input window by cp.async; dy1 = bf16(BN1 backward) goes from them
+// into the operand's layout, 0 on the slots that are not the tile's pixels.
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void dw1_fetch(const __nv_bfloat16* __restrict__ x,
+                                          const __nv_bfloat16* __restrict__ y1,
+                                          const __nv_bfloat16* __restrict__ dt1, int t,
+                                          unsigned char* buf, uint64_t* bar) {
+  const stem90::Tile T = stem90::tile_of(t);
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = min(stem90::TW, kW - T.c0) * kC * 2;  // own slots 1 .. of each row
+    sm90::fence_proxy_async();  // the threads' reads of the buffer, before the copies overwrite it
+    sm90::mbar_expect_tx(bar, 2 * stem90::TR * bytes);
+#pragma unroll
+    for (int hr = 0; hr < stem90::TR; ++hr) {
+      const size_t off = pix_off(T.b, T.r0 + hr, T.c0);
+      sm90::bulk_load(buf + (hr * stem90::HW + 1) * kC * 2, dt1 + off, bytes, bar);
+      sm90::bulk_load(buf + kF_OffY + (hr * stem90::HW + 1) * kC * 2, y1 + off, bytes, bar);
+    }
+  }
+  stem90::load_x<stem90::TR + 2, kWide>(x, T.b, T.r0 - 1, T.c0, buf + kF_OffX);
+}
+
+__global__ void __launch_bounds__(kWide, 1)
 dw1_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y1,
            const __nv_bfloat16* __restrict__ dt1, const float* __restrict__ vec,
            float* __restrict__ part, int B) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  float* dys = xs + kF_X;
-  float* vs = dys + kF_Dy;
-  const int tid = threadIdx.x, cg = tid & 7, co = tid & 63, g = tid >> 6;
-  for (int v = tid; v < 5 * kC; v += kThreads) vs[v] = vec[v];
-  int xoff[7];
-#pragma unroll
-  for (int j = 0; j < 7; ++j) {
-    const int k = g + 4 * j < 27 ? g + 4 * j : 0;
-    const int tap = k / 3, ci = k % 3;
-    xoff[j] = ((tap / 3) * kXW + tap % 3) * 3 + ci;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  unsigned char* dy = smem + kF_OffDy;
+  unsigned char* im = smem + kF_OffIm;
+  float* red = reinterpret_cast<float*>(smem + kF_OffRed);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kF_OffBar);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int c = tid & 7;  // this thread's channel chunk in the dy1 pass
+  if (tid == 0) {
+    sm90::mbar_init(&bar[0], 1);  // thread 0's arrive; the bytes come with the copies
+    sm90::mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[7];
+  float cf[5][8];
 #pragma unroll
-  for (int j = 0; j < 7; ++j) acc[j] = 0.0f;
+  for (int r = 0; r < 5; ++r)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cf[r][k] = vec[r * kC + c * 8 + k];
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  __syncthreads();
 
-  for (int row = blockIdx.x; row < B * kH; row += gridDim.x) {
-    const int b = row / kH, r = row % kH;
-    __syncthreads();
-    stage_x_rows(x, b, r, xs);
-    for (int item = tid; item < kW * 8; item += kThreads) {
-      const int px = item >> 3;
-      const size_t off = pix_off(b, r, px) + cg * 8;
-      float dt[8], yv[8];
-      load8(dt1 + off, dt);
-      load8(y1 + off, yv);
+  const int ntiles = B * stem90::TILES;
+  if ((int)blockIdx.x < ntiles) dw1_fetch(x, y1, dt1, blockIdx.x, smem, &bar[0]);
+  stem90::cp_async_commit();
+  const uint32_t dya = sm90::smem_u32(dy), ima = sm90::smem_u32(im);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const unsigned char* cur = smem + (it & 1) * kF_Buf;
+    stem90::cp_async_wait_all();
+    sm90::mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    __syncthreads();  // this tile's window is in; the last tile's wgmmas and reads are done
+    if (tile + (int)gridDim.x < ntiles)
+      dw1_fetch(x, y1, dt1, tile + gridDim.x, smem + ((it + 1) & 1) * kF_Buf, &bar[(it + 1) & 1]);
+    stem90::cp_async_commit();
+
+    const stem90::Tile T = stem90::tile_of(tile);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = cg * 8 + k;
-        dys[px * kC + c] = round_bf16(bn_bwd(dt[k], yv[k], vs[c], vs[kC + c], vs[2 * kC + c],
-                                             vs[3 * kC + c], vs[4 * kC + c]));
+    for (int i = 0; i < kImPix * 8 / kWide; ++i) {
+      const int pix = (tid >> 3) + i * (kWide / 8);
+      float o[8];
+      if (own_pixel(T, pix & 63)) {
+        float dt[8], yv[8];
+        unpack8(*reinterpret_cast<const int4*>(cur + pix * kC * 2 + c * 16), dt);
+        unpack8(*reinterpret_cast<const int4*>(cur + kF_OffY + pix * kC * 2 + c * 16), yv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = bn_bwd(dt[k], yv[k], cf[0][k], cf[1][k], cf[2][k], cf[3][k], cf[4][k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = 0.0f;
       }
+      *reinterpret_cast<int4*>(dy + (c * kDyLd + pix) * 16) = pack8(o);  // dy1 rounded to bf16
     }
+    conv1_im2col(cur + kF_OffX, im);
+    sm90::fence_proxy_async();
     __syncthreads();
-    for (int p = 0; p < kW; ++p) {
-      const float d = dys[p * kC + co];
-      const float* xp = xs + p * 3;
+
 #pragma unroll
-      for (int j = 0; j < 7; ++j) acc[j] = fmaf(xp[xoff[j]], d, acc[j]);
+    for (int i = 0; i < 16; ++i) sm90::fence_operand(acc[i]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int s = 4 * wg; s < 4 * wg + 4; ++s) {
+      const uint64_t da = stem90::desc0(dya + s * 16 * 16, 128, kDyLd * 16);
+      const uint64_t db = stem90::desc0(ima + s * 16 * 16, 128, kImPix * 16);
+      stem90::wgmma_32<1, 1>(acc, da, db);
     }
-  }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
 #pragma unroll
-  for (int j = 0; j < 7; ++j) {
-    const int k = g + 4 * j;
-    if (k < 27) part[(size_t)blockIdx.x * 27 * kC + k * kC + co] = acc[j];
+    for (int i = 0; i < 16; ++i) sm90::fence_operand(acc[i]);
+  }
+  stem90::cp_async_wait_all();
+
+  // acc[4j + 2h + e] is dW1[k][co] at co = 16 * warp + lane / 4 + 8h, k = 8j +
+  // 2 * (lane % 4) + e; warpgroups 1-3 leave their sums in shared memory,
+  // warpgroup 0 adds them to its own in a fixed order
+  const int co0 = 16 * warp + (lane >> 2), k0 = 2 * (lane & 3);
+  if (wg > 0)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int co = co0 + 8 * ((i >> 1) & 1), k = k0 + 8 * (i >> 2) + (i & 1);
+      red[(wg - 1) * 32 * kC + k * kC + co] = acc[i];
+    }
+  __syncthreads();
+  if (wg == 0) {
+    float* prow = part + (size_t)blockIdx.x * 27 * kC;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int co = co0 + 8 * ((i >> 1) & 1), k = k0 + 8 * (i >> 2) + (i & 1);
+      const float* r = red + k * kC + co;
+      if (k < 27) prow[k * kC + co] = ((acc[i] + r[0]) + r[32 * kC]) + r[2 * 32 * kC];
+    }
   }
 }
 
@@ -753,10 +952,13 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // Each entry launches one kernel on `stream` and returns cudaGetLastError().
 // `grid` is the number of blocks, and so the number of partial rows written.
 
-extern "C" int ssdx_st_conv1(const void* x, const float* w1, const float* b1, void* y1,
+// w1 [64][32] bf16 as B2 takes it; partial rows [2][64] (sum, sum of squares).
+extern "C" int ssdx_st_conv1(const void* x, const void* w1, const float* b1, void* y1,
                              float* part, int B, int grid, cudaStream_t stream) {
-  conv1_stats_kernel<<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), w1, b1,
+  cudaError_t e = allow_smem(conv1_stats_kernel, kC1Smem);
+  if (e != cudaSuccess) return (int)e;
+  conv1_stats_kernel<<<grid, kWide, kC1Smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(w1), b1,
       reinterpret_cast<__nv_bfloat16*>(y1), part, B);
   return (int)cudaGetLastError();
 }
@@ -814,7 +1016,7 @@ extern "C" int ssdx_st_dw1(const void* x, const void* y1, const void* dt1, const
                            float* part, int B, int grid, cudaStream_t stream) {
   cudaError_t e = allow_smem(dw1_kernel, kF_Smem);
   if (e != cudaSuccess) return (int)e;
-  dw1_kernel<<<grid, kThreads, kF_Smem, stream>>>(
+  dw1_kernel<<<grid, kWide, kF_Smem, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(y1),
       reinterpret_cast<const __nv_bfloat16*>(dt1), vec, part, B);
   return (int)cudaGetLastError();

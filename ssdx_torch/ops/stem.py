@@ -24,7 +24,7 @@ from . import _build
 from .pool import sm_count
 
 __all__ = ["stem_conv_pool", "stem_conv_pool_ref", "stem_available", "launches", "TILE_ROWS",
-           "TILE_COLS", "TILES_PER_IMAGE", "grid_size", "tile_origin"]
+           "TILE_COLS", "TILES_PER_IMAGE", "grid_size", "tile_origin", "w1_operand"]
 
 launches = 0  # kernel launches by stem_conv_pool
 
@@ -40,8 +40,8 @@ _lib = None
 
 def grid_size(B, sms):
     """Persistent blocks of a launch over ``B`` images on a card of ``sms``
-    streaming multiprocessors, one block each (the stem kernels and
-    stem_train's stage2 and dw2 use the same)."""
+    streaming multiprocessors, one block each (the stem kernel and every
+    launch of stem_train that contracts: conv1_stats, stage2, dw2, dw1)."""
     return min(B * TILES_PER_IMAGE, sms)
 
 
@@ -60,6 +60,13 @@ def tile_origin(t):
     core's ``tile_of`` computes it."""
     b, rem = divmod(t, TILES_PER_IMAGE)
     return b, (rem // _TILES_X) * TILE_ROWS, (rem % _TILES_X) * TILE_COLS
+
+
+def w1_operand(w1):
+    """conv1_1's OIHW weights ``[64,3,3,3]`` as the kernels' B operand (B2's
+    conv1_1, B3's conv1_stats): bf16 ``[64][32]``, ``[co][(dr*3 + dc)*3 +
+    ci]``, columns 27..31 zero."""
+    return F.pad(w1.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(_C, 27), (0, 5)).contiguous()
 
 
 def stem_conv_pool_ref(images, w1, b1, w2, b2, dtype=torch.bfloat16):
@@ -107,7 +114,7 @@ def stem_conv_pool(images, w1, b1, w2, b2, dtype=torch.bfloat16):
         raise ValueError("stem_conv_pool: images and weights must share a device")
     bf = torch.bfloat16
     x = images.to(bf).contiguous()
-    w1p = F.pad(w1.to(bf).permute(0, 2, 3, 1).reshape(_C, 27), (0, 5)).contiguous()  # [co][32]
+    w1p = w1_operand(w1)
     b1p = b1.to(bf).float().contiguous()
     w2p = w2.to(bf).permute(0, 2, 3, 1).reshape(_C, 9 * _C).contiguous()  # [co][tap*64+ci]
     b2p = b2.float().contiguous()

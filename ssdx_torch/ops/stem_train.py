@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from ..mesh import all_reduce_sum
 from . import _build
 from .pool import sm_count
-from .stem import grid_size
+from .stem import grid_size, w1_operand
 
 __all__ = ["stem_train", "stem_train_ref", "stem_train_reference_params", "pool_routing_ref",
            "StemTrain", "StemTrainRef", "launches"]
@@ -267,12 +267,12 @@ def _kernel_forward(x, w1, b1, g1, be1, w2, b2, g2, be2, eps, mesh=None):
     B, sms = x.shape[0], sm_count(dev)
     n = _global_n(B, mesh)
     xb = x.detach().to(bf).contiguous()
-    w1p = w1.detach().to(bf).float().permute(2, 3, 1, 0).reshape(27, _C).contiguous()
+    w1p = w1_operand(w1.detach())
     b1p = b1.detach().to(bf).float().contiguous()
     w2p = w2.detach().to(bf).permute(0, 2, 3, 1).reshape(_C, 9 * _C).contiguous()  # [co][tap*64+ci]
 
     y1 = _empty((B, _H, _H, _C), bf, dev)
-    grid = min(B * _H, 4 * sms)
+    grid = grid_size(B, sms)
     part = _empty((grid, 2 * _C), f32, dev)
     _launch("ssdx_st_conv1", xb, w1p, b1p, y1, part, B, grid)
     mean1, var1, inv1 = _stats_from_sums(all_reduce_sum(_colsum(part), mesh), n, eps)
@@ -328,8 +328,8 @@ def _kernel_backward(dp, xb, w2, y1n, g1, be1, g2, be2, y1, y2, stats, mesh=None
     del dy2
     dw2 = _colsum(part).view(3, 3, _C, _C).permute(3, 2, 0, 1).contiguous()
 
-    # F: BN1 backward and dW1
-    grid = min(B * _H, 2 * sms)
+    # F: BN1 backward and dW1, split-K over conv tiles, one slice per SM
+    grid = grid_size(B, sms)
     part = _empty((grid, 27 * _C), f32, dev)
     vec_f = _vec([g1 * inv1, mean1, inv1, s1_1g / n, s2_1g / n], dev)
     _launch("ssdx_st_dw1", xb, y1, dt1, vec_f, part, B, grid)

@@ -2,6 +2,7 @@
 
     python -m ssdx_torch.tools.overfit_check [--epochs 40] [--eval-every 5]
         [--augment] [--min-map M] [--images 32] [--width-mult 1.0] [--device cpu]
+        [--seed 0]
 
 The port's counterpart of ``scripts/overfit_check.py``.  Writes 32 images of
 coloured rectangles on noise (numpy seed 0, the script's ``make_dataset``)
@@ -17,6 +18,8 @@ when the final mAP@0.5 is above ``--min-map`` (0.5, or 0.3 with
 
 Runs on the GPU unless ``--device cpu``, which takes the plain PyTorch path in
 float32; ``--width-mult`` thins the network (tests use 0.25 on the CPU).
+``--seed`` draws another dataset, initial weights and epoch order (0: the
+script's), so that two trees can be compared over several draws.
 """
 from __future__ import annotations
 
@@ -81,6 +84,8 @@ def parse_args(argv=None):
     ap.add_argument("--width-mult", type=float, default=1.0)
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain path in float32")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="dataset, initial weights and epoch order (0: the script's)")
     return ap.parse_args(argv)
 
 
@@ -88,7 +93,7 @@ def main(argv=None, log=print) -> int:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     with tempfile.TemporaryDirectory(prefix="ssdx_torch_overfit_") as tmp:
-        make_dataset(Path(tmp), n=args.images)
+        make_dataset(Path(tmp), n=args.images, seed=args.seed)
         ds = DetectionDataset(tmp)
         where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         log(f"dataset: {len(ds)} images, classes={ds.classes}, device={where}")
@@ -103,7 +108,8 @@ def _train(args, ds, dev, log) -> int:
         aug = AugmentConfig(small_sampler_options=(2.0,), large_sampler_options=(2.0,),
                             hflip_prob=0.0, photometric_prob=0.0)
     common = dict(source_size=256, max_boxes=8, num_workers=4, device=dev)
-    train_loader = DetectionLoader(ds, 16, train=True, augment_cfg=aug, **common)
+    train_loader = DetectionLoader(ds, 16, train=True, augment_cfg=aug, seed=724 + args.seed,
+                                   **common)
     val_loader = DetectionLoader(ds, 16, train=False, **common)
 
     num_classes = len(ds.classes) + 1
@@ -115,7 +121,8 @@ def _train(args, ds, dev, log) -> int:
                                        max_epochs=args.epochs, warmup_epochs=2, base_lr=2e-3,
                                        min_lr=1e-4, weight_decay=5e-4)
     state = create_train_state(model, optimizer, sched,
-                               init_variables(num_classes, seed=0, width_mult=args.width_mult))
+                               init_variables(num_classes, seed=args.seed,
+                                              width_mult=args.width_mult))
     pri = P.create_priors()
     train_step = make_train_step(model, pri, P.priors_xyxy(pri), iou_thresh=0.4)
     eval_step = make_eval_step(model, pri, P.priors_xyxy(pri), iou_thresh=0.4,

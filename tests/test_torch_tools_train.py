@@ -53,6 +53,21 @@ def test_overfit_check_dataset_matches_the_script(tmp_path):
         assert (tmp_path / "a" / name).read_bytes() == (tmp_path / "b" / name).read_bytes()
 
 
+def test_overfit_check_seed_draws_another_dataset(tmp_path, monkeypatch):
+    """--seed (default 0, the script's draw) reaches the dataset and the train loop."""
+    assert overfit_check.parse_args([]).seed == 0
+    for s in (0, 1):
+        (tmp_path / str(s)).mkdir()
+        overfit_check.make_dataset(tmp_path / str(s), n=4, seed=s)
+    assert (tmp_path / "0" / "ann.csv").read_text() != (tmp_path / "1" / "ann.csv").read_text()
+    real, seen = overfit_check.make_dataset, []
+    monkeypatch.setattr(overfit_check, "make_dataset",
+                        lambda root, n, seed: (seen.append(seed), real(root, n=n, seed=seed)))
+    monkeypatch.setattr(overfit_check, "_train", lambda args, ds, dev, log: args.seed)
+    rc = overfit_check.main(["--device", "cpu", "--images", "4", "--seed", "3"], log=lambda m: None)
+    assert rc == 3 and seen == [3]
+
+
 ARGS = ["--device", "cpu", "--width-mult", "0.25", "--n-train", "12", "--n-test", "4",
         "--size", "96", "--batch-size", "4"]
 
