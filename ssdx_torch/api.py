@@ -8,6 +8,8 @@ dtype=torch.bfloat16``: the forward starts with the fused stem kernel and
 post-processing runs the NMS kernel.  ``Detector.quantize_int8`` switches
 the post-stem backbone to int8 (``ssdx_torch/quant.py``), which on the GPU
 runs through the int8 conv kernels (``ssdx_torch/ops/int8_conv.py``).
+Under a running profiler ``predict_batched``, the input copy and the
+network are spans (:func:`ssdx_torch.utils.profiling.span`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from .model import IMAGE_SIZE, SSD300, init_variables
 from .ops.int8_conv import apply_int8_kernels
 from .ops.stem import stem_conv_pool
 from .predict import Detections, postprocess, to_pylist
+from .utils.profiling import span
 from .weights import load_params, state_dict_from_jax, variables_from_torch
 
 __all__ = ["Detector"]
@@ -168,7 +171,8 @@ class Detector:
         With a mesh the batch is zero-padded up to a multiple of the mesh
         size, each rank computes its shard, the shards are gathered in rank
         order and the pad rows are dropped."""
-        x = torch.as_tensor(images, device=self.device)
+        with span("ssdx_torch.api.input_copy"):
+            x = torch.as_tensor(images, device=self.device)
         if self.mesh is None:
             return self._forward_local(x)
         b = x.shape[0]
@@ -180,11 +184,12 @@ class Detector:
         return loc[:b], conf[:b]
 
     def _forward_local(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        if self._int8_forward is not None:
-            return self._int8_forward(self.quant_params, self._stem(x), self.dtype)
-        if self.stem_kernel:
-            x = self._stem(x)
-        return self.model(x)
+        with span("ssdx_torch.api.network"):
+            if self._int8_forward is not None:
+                return self._int8_forward(self.quant_params, self._stem(x), self.dtype)
+            if self.stem_kernel:
+                x = self._stem(x)
+            return self.model(x)
 
     @torch.inference_mode()
     def predict_batched(
@@ -198,23 +203,24 @@ class Detector:
         pre_conf_all=None,
     ) -> Detections:
         """Fixed-shape padded detections (tensors on the detector's device)."""
-        if pre_loc_all is not None and pre_conf_all is not None:
-            loc = torch.as_tensor(pre_loc_all, device=self.device)
-            conf = torch.as_tensor(pre_conf_all, device=self.device)
-        else:
-            if images is None:
-                raise ValueError("either images or precomputed logits required")
-            loc, conf = self.forward(images)
-        return postprocess(
-            loc,
-            conf,
-            self.priors,
-            score_thresh=score_thresh,
-            nms_thresh=nms_thresh,
-            max_per_img=max_per_img,
-            class_agnostic=class_agnostic,
-            variances=self.variances,
-        )
+        with span("ssdx_torch.api.predict_batched"):
+            if pre_loc_all is not None and pre_conf_all is not None:
+                loc = torch.as_tensor(pre_loc_all, device=self.device)
+                conf = torch.as_tensor(pre_conf_all, device=self.device)
+            else:
+                if images is None:
+                    raise ValueError("either images or precomputed logits required")
+                loc, conf = self.forward(images)
+            return postprocess(
+                loc,
+                conf,
+                self.priors,
+                score_thresh=score_thresh,
+                nms_thresh=nms_thresh,
+                max_per_img=max_per_img,
+                class_agnostic=class_agnostic,
+                variances=self.variances,
+            )
 
     def predict(self, images=None, **kwargs) -> list[dict]:
         """Ragged predictions: list (len B) of {'labels' int64 0..C-2,

@@ -25,6 +25,7 @@ import torch
 from . import boxes as B
 from .model import IMAGE_SIZE
 from .nms import batched_nms_mask
+from .utils.profiling import span
 
 __all__ = ["Detections", "postprocess", "to_pylist"]
 
@@ -77,55 +78,61 @@ def postprocess(
     if top_k_candidates is None:
         top_k_candidates = 2 * prior_top_k
 
-    Bsz, P, C = conf_all.shape
-    n_fg = C - 1
-    Kp = min(prior_top_k, P)
-    K = min(top_k_candidates, Kp * n_fg)
+    with span("ssdx_torch.predict.postprocess") as sp:
+        Bsz, P, C = conf_all.shape
+        n_fg = C - 1
+        Kp = min(prior_top_k, P)
+        K = min(top_k_candidates, Kp * n_fg)
 
-    # stage 1: top priors by best foreground class, ranked in logit space
-    key = conf_all[..., 1:].amax(dim=-1) - torch.logsumexp(conf_all, dim=-1)
-    _, prior_sel = _top_k(key, Kp)  # [B, Kp]
-    pair_scores = torch.softmax(_take(conf_all, prior_sel), dim=-1)[..., 1:]
+        # stage 1: top priors by best foreground class, ranked in logit space
+        key = conf_all[..., 1:].amax(dim=-1) - torch.logsumexp(conf_all, dim=-1)
+        _, prior_sel = _top_k(key, Kp)  # [B, Kp]
+        pair_scores = torch.softmax(_take(conf_all, prior_sel), dim=-1)[..., 1:]
 
-    # decode the Kp selected priors once; pairs gather decoded boxes
-    dec = B.decode(_take(loc_all, prior_sel), priors_cxcywh[prior_sel], variances)
-    xyxy_p = torch.clamp(B.cxcywh_to_xyxy(dec), 0.0, 1.0) * IMAGE_SIZE
+        # decode the Kp selected priors once; pairs gather decoded boxes
+        dec = B.decode(_take(loc_all, prior_sel), priors_cxcywh[prior_sel], variances)
+        xyxy_p = torch.clamp(B.cxcywh_to_xyxy(dec), 0.0, 1.0) * IMAGE_SIZE
 
-    # stage 2: top pairs among the selected priors' class columns
-    top_scores, pair_idx = _top_k(pair_scores.reshape(Bsz, -1), K)
-    cls_idx = (pair_idx % n_fg).to(torch.int32)  # [B, K]
-    valid = top_scores > score_thresh
-    xyxy = _take(xyxy_p, pair_idx // n_fg)
+        # stage 2: top pairs among the selected priors' class columns
+        top_scores, pair_idx = _top_k(pair_scores.reshape(Bsz, -1), K)
+        cls_idx = (pair_idx % n_fg).to(torch.int32)  # [B, K]
+        valid = top_scores > score_thresh
+        sp.count(nms_candidates=valid, nms_slots=Bsz * K)
+        xyxy = _take(xyxy_p, pair_idx // n_fg)
 
-    keep = batched_nms_mask(xyxy, top_scores, valid, cls_idx, nms_thresh,
-                            class_aware=not class_agnostic)
+        keep = batched_nms_mask(xyxy, top_scores, valid, cls_idx, nms_thresh,
+                                class_aware=not class_agnostic)
 
-    kept_scores = torch.where(keep & valid, top_scores, torch.full_like(top_scores, -1.0))
-    final_scores, sel = _top_k(kept_scores, max_per_img)
-    return Detections(
-        boxes=_take(xyxy, sel),
-        scores=torch.clamp(final_scores, min=0.0),
-        labels=torch.gather(cls_idx, 1, sel),
-        valid=final_scores > 0,
-    )
+        kept_scores = torch.where(keep & valid, top_scores, torch.full_like(top_scores, -1.0))
+        final_scores, sel = _top_k(kept_scores, max_per_img)
+        return Detections(
+            boxes=_take(xyxy, sel),
+            scores=torch.clamp(final_scores, min=0.0),
+            labels=torch.gather(cls_idx, 1, sel),
+            valid=final_scores > 0,
+        )
 
 
 def to_pylist(det: Detections) -> list[dict]:
     """Padded :class:`Detections` -> a list of ``{"labels", "scores",
     "boxes"}`` numpy dicts per image (labels 0-based, boxes xyxy in 300x300
-    pixel coordinates)."""
-    boxes = det.boxes.cpu().numpy()
-    scores = det.scores.cpu().numpy()
-    labels = det.labels.cpu().numpy()
-    valid = det.valid.cpu().numpy()
-    out = []
-    for b in range(boxes.shape[0]):
-        m = valid[b]
-        out.append(
-            {
-                "labels": labels[b][m].astype(np.int64),
-                "scores": scores[b][m].astype(np.float32),
-                "boxes": boxes[b][m].astype(np.float32),
-            }
-        )
+    pixel coordinates).  The first copy waits for the batch (span
+    ``.wait``); the rest is the host's own (``.unpack``)."""
+    with span("ssdx_torch.predict.to_pylist"):
+        with span("ssdx_torch.predict.to_pylist.wait"):
+            boxes = det.boxes.cpu().numpy()
+        with span("ssdx_torch.predict.to_pylist.unpack"):
+            scores = det.scores.cpu().numpy()
+            labels = det.labels.cpu().numpy()
+            valid = det.valid.cpu().numpy()
+            out = []
+            for b in range(boxes.shape[0]):
+                m = valid[b]
+                out.append(
+                    {
+                        "labels": labels[b][m].astype(np.int64),
+                        "scores": scores[b][m].astype(np.float32),
+                        "boxes": boxes[b][m].astype(np.float32),
+                    }
+                )
     return out

@@ -18,6 +18,10 @@ the whole batch: BatchNorm statistics are all-reduced (in the model and in
 the stem kernel), the loss divides by the global batch's positive count, the
 gradients are summed over the ranks in one flat buffer before the optimizer
 step, and the reported metrics are the global ones on every rank.
+
+The step's phases (batch copy, forward, targets and loss, backward,
+optimizer) are spans of :func:`ssdx_torch.utils.profiling.span`, which do
+nothing unless a profiler runs.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ..model import update_running_stats
 from ..ops.stem_train import stem_train
 from ..predict import Detections, postprocess
 from ..utils import debug
+from ..utils.profiling import span
 from ..weights import state_dict_from_jax
 
 __all__ = ["Batch", "TrainState", "create_train_state", "make_train_step", "make_eval_step"]
@@ -158,25 +163,31 @@ def make_train_step(
         return out
 
     def train_step(state: TrainState, batch: Batch):
-        batch = _on(dev, batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loc, cls = forward(state, batch.images)
-        tg = build_targets(batch.gt_boxes, batch.gt_labels, batch.gt_valid,
-                           priors_cxcywh, priors_xyxy, iou_thresh)
-        total_pos = None if mesh is None else _global_pos(tg.pos, mesh)
-        total, loc_l, conf_l = multibox_loss(loc, cls, tg.loc, tg.cls, tg.pos, neg_pos_ratio,
-                                             total_pos=total_pos)
-        total.backward()
-        if mesh is not None:
-            _all_reduce_grads(list(state.model.parameters()), mesh)
-        metrics = _global_metrics(total, loc_l, conf_l, mesh)
-        if debug.nan_checks_enabled():
-            debug.check_finite_loss(metrics["loss"], state.step)
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        return state, metrics
+        with span("ssdx_torch.train.step"):
+            with span("ssdx_torch.train.batch_copy"):
+                batch = _on(dev, batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("ssdx_torch.train.forward"):
+                loc, cls = forward(state, batch.images)
+            with span("ssdx_torch.train.targets_loss"):
+                tg = build_targets(batch.gt_boxes, batch.gt_labels, batch.gt_valid,
+                                   priors_cxcywh, priors_xyxy, iou_thresh)
+                total_pos = None if mesh is None else _global_pos(tg.pos, mesh)
+                total, loc_l, conf_l = multibox_loss(loc, cls, tg.loc, tg.cls, tg.pos,
+                                                     neg_pos_ratio, total_pos=total_pos)
+            with span("ssdx_torch.train.backward"):
+                total.backward()
+            if mesh is not None:
+                _all_reduce_grads(list(state.model.parameters()), mesh)
+            metrics = _global_metrics(total, loc_l, conf_l, mesh)
+            if debug.nan_checks_enabled():
+                debug.check_finite_loss(metrics["loss"], state.step)
+            with span("ssdx_torch.train.optimizer"):
+                state.optimizer.step()
+                if state.scheduler is not None:
+                    state.scheduler.step()
+            state.step += 1
+            return state, metrics
 
     return train_step
 
