@@ -8,6 +8,15 @@ dtype=torch.bfloat16``: the forward starts with the fused stem kernel and
 post-processing runs the NMS kernel.  ``Detector.quantize_int8`` switches
 the post-stem backbone to int8 (``ssdx_torch/quant.py``), which on the GPU
 runs through the int8 conv kernels (``ssdx_torch/ops/int8_conv.py``).
+
+Host images (a numpy array or a CPU tensor) reach a CUDA detector staged
+in pinned host memory: the host casts (or copies) the batch into a buffer
+of PyTorch's caching host allocator, which is reused from call to call,
+and one asynchronous DMA carries it to the card.  With the stem kernel the
+buffer holds bfloat16, what the stem reads: the host's cast rounds to
+nearest even, as the card's does, so the stem gets the same bits for half
+the bytes across PCIe.  A CUDA tensor, or a detector on the CPU, takes the
+plain ``torch.as_tensor(images, device=...)``.
 Under a running profiler ``predict_batched``, the input copy and the
 network are spans (:func:`ssdx_torch.utils.profiling.span`).
 """
@@ -168,11 +177,28 @@ class Detector:
         (loc [B,P,4], cls [B,P,C]) float32 on the detector's device.  Once
         :meth:`quantize_int8` has run, the post-stem backbone is int8.
 
+        On a CUDA device, host images (a numpy array or a CPU tensor) are
+        staged in pinned memory (:meth:`_stage`): cast on the host to
+        bfloat16 when the stem kernel runs (rounding to nearest even, as
+        the card would; the stem's own cast is then a no-op), copied as
+        they are otherwise.  A CUDA tensor, or a CPU detector, is taken by
+        ``torch.as_tensor(images, device=...)``.  The span
+        ``ssdx_torch.api.input_copy`` counts the caller's ``input_bytes``
+        and the ``staged_bytes`` of them that went through pinned memory.
+
         With a mesh the batch is zero-padded up to a multiple of the mesh
         size, each rank computes its shard, the shards are gathered in rank
         order and the pad rows are dropped."""
-        with span("ssdx_torch.api.input_copy"):
-            x = torch.as_tensor(images, device=self.device)
+        with span("ssdx_torch.api.input_copy") as sp:
+            if self.device.type == "cuda" and (
+                    isinstance(images, np.ndarray)
+                    or (isinstance(images, torch.Tensor) and images.device.type == "cpu")):
+                host = torch.as_tensor(images)
+                x = self._stage(host)
+                sp.count(input_bytes=host.nbytes, staged_bytes=host.nbytes)
+            else:
+                x = torch.as_tensor(images, device=self.device)
+                sp.count(input_bytes=x.nbytes, staged_bytes=0)
         if self.mesh is None:
             return self._forward_local(x)
         b = x.shape[0]
@@ -182,6 +208,19 @@ class Detector:
         loc, conf = self._forward_local(shard_batch(x, self.mesh))
         loc, conf = all_gather_batch(loc, self.mesh), all_gather_batch(conf, self.mesh)
         return loc[:b], conf[:b]
+
+    def _stage(self, host: torch.Tensor) -> torch.Tensor:
+        """``host`` on the card through a pinned buffer, in bfloat16 when the
+        stem kernel reads it.  The caching host allocator records the DMA's
+        event on the buffer and hands it out again only once the DMA is
+        done, so concurrent callers never share one.  Returns when the copy
+        has landed, as the pageable copy did: the caller's array is free
+        again and the input-copy span covers the DMA."""
+        dtype = torch.bfloat16 if self.stem_kernel else host.dtype
+        pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True).copy_(host)
+        x = pinned.to(self.device, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return x
 
     def _forward_local(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         with span("ssdx_torch.api.network"):
