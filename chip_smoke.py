@@ -426,7 +426,7 @@ def timing(dev, det, launches, errs):
     # nms at the serving (K=400) and eval (K=1600) candidate counts
     nms_row = None
     for K in (400, 1600):
-        ins = [nms_check.nms_inputs(dev, BS, K, seed=K + s, class_aware=True) for s in range(4)]
+        ins = [nms_check.nms_inputs(dev, BS, K, seed=K + s)[:2] for s in range(4)]
         k_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted(*a, 0.3), ins)
         p_ms = cuda_ms(lambda a: nms_ops.nms_core_sorted_ref(*a, 0.3), ins, iters=4, warmup=1)
         bound, bound_by = profile_split.nms_bound(ins[0][1])

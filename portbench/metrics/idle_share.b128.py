@@ -1,0 +1,4 @@
+"""``idle_share.serve``, read in the bf16 serving cell at bs=128."""
+from portbench.core import reader
+
+read = reader("idle_share.serve")

@@ -1,0 +1,4 @@
+"""``nms_slot_share.serve``, read in the ResNet-50 serving cell."""
+from portbench.core import reader
+
+read = reader("nms_slot_share.serve")

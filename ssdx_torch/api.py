@@ -9,14 +9,23 @@ post-processing runs the NMS kernel.  ``Detector.quantize_int8`` switches
 the post-stem backbone to int8 (``ssdx_torch/quant.py``), which on the GPU
 runs through the int8 conv kernels (``ssdx_torch/ops/int8_conv.py``).
 
+``architecture`` picks the network: "vgg16" (the default, SSD300 on
+VGG16+BN, ``ssdx_torch/model.py``, DIoU-NMS) or "resnet50" (NVIDIA's SSD300
+v1.1 on a ResNet-50 trunk with its own default boxes and IoU-NMS,
+``ssdx_torch/model_resnet.py``; served in its dtype with no stem kernel and
+no int8 path).  Both serve through the same ``forward``, ``predict_batched``
+and ``to_pylist``.
+
 Host images (a numpy array or a CPU tensor) reach a CUDA detector staged
 in pinned host memory: the host casts (or copies) the batch into a buffer
 of PyTorch's caching host allocator, which is reused from call to call,
 and one asynchronous DMA carries it to the card.  With the stem kernel the
 buffer holds bfloat16, what the stem reads: the host's cast rounds to
 nearest even, as the card's does, so the stem gets the same bits for half
-the bytes across PCIe.  A CUDA tensor, or a detector on the CPU, takes the
-plain ``torch.as_tensor(images, device=...)``.
+the bytes across PCIe.  The ResNet-50 network in bfloat16 is staged in
+bfloat16 too: its first conv reads the input in its dtype.  A CUDA
+tensor, or a detector on the CPU, takes the plain
+``torch.as_tensor(images, device=...)``.
 Under a running profiler ``predict_batched``, the input copy and the
 network are spans (:func:`ssdx_torch.utils.profiling.span`).
 """
@@ -25,8 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import model_resnet, quant, resolve_device
 from . import priors as P
-from . import quant, resolve_device
 from .export import fold_batchnorm
 from .mesh import all_gather_batch, shard_batch
 from .model import IMAGE_SIZE, SSD300, init_variables
@@ -36,7 +45,10 @@ from .predict import Detections, postprocess, to_pylist
 from .utils.profiling import span
 from .weights import load_params, state_dict_from_jax, variables_from_torch
 
-__all__ = ["Detector"]
+__all__ = ["Detector", "ARCHITECTURES"]
+
+# architecture -> the NMS overlap its published postprocess uses
+ARCHITECTURES = {"vgg16": "diou", "resnet50": "iou"}
 
 
 class Detector:
@@ -51,6 +63,14 @@ class Detector:
     conv1_1 + conv1_2 + pool through :func:`ssdx_torch.ops.stem.stem_conv_pool`.
     ``device`` defaults to the mesh's device, or without a mesh to ``cuda``.
     ``width_mult`` narrows every backbone layer, for tests.
+
+    ``architecture`` is "vgg16" or "resnet50" (:data:`ARCHITECTURES`); the
+    ResNet-50 network takes ``variables`` in the layout of
+    :func:`ssdx_torch.model_resnet.init_variables`, has no stem kernel and
+    no int8 path, and uses NVIDIA's default boxes
+    (:func:`ssdx_torch.priors.create_priors_coco`).  ``nms_kind`` is the
+    overlap its published postprocess suppresses by ("diou" or "iou"), what
+    ``predict_batched`` uses unless the call names another.
 
     ``mesh`` (:mod:`ssdx_torch.mesh`): data-parallel inference.  Every rank
     calls ``forward`` with the same whole batch, runs its shard through the
@@ -71,7 +91,16 @@ class Detector:
         device=None,
         width_mult: float = 1.0,
         mesh=None,
+        architecture: str = "vgg16",
     ):
+        if architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture must be one of {sorted(ARCHITECTURES)}, "
+                             f"got {architecture!r}")
+        if stem_kernel and architecture != "vgg16":
+            raise ValueError("the stem kernel computes VGG16's conv1_1 + conv1_2 + pool; "
+                             f"the {architecture} network has no such stem")
+        self.architecture = architecture
+        self.nms_kind = ARCHITECTURES[architecture]
         self.mesh = mesh
         self.device = resolve_device(mesh.device if device is None and mesh is not None
                                      else device)
@@ -84,28 +113,51 @@ class Detector:
         self.width_mult = width_mult
         self.img_h = self.img_w = IMAGE_SIZE
 
+        resnet = architecture == "resnet50"
         if variables is None:
-            variables = init_variables(self.num_classes, rng_seed, width_mult)
+            init = model_resnet.init_variables if resnet else init_variables
+            variables = init(self.num_classes, rng_seed, width_mult)
         if fold_bn and "batch_stats" in variables:
             variables = fold_batchnorm(variables)
         self.variables = variables
 
         self.stem_kernel = bool(stem_kernel and fold_bn)
-        self.model = SSD300(self.num_classes, fold_bn=fold_bn,
-                            stem_input=self.stem_kernel, width_mult=width_mult,
-                            dtype=dtype)
-        self.model.load_state_dict(state_dict_from_jax(variables, fold_bn))
+        if resnet:
+            self.model = model_resnet.SSD300ResNet50(self.num_classes, fold_bn=fold_bn,
+                                                     width_mult=width_mult, dtype=dtype)
+            sd = model_resnet.state_dict_from_tree(variables, self.num_classes)
+        else:
+            self.model = SSD300(self.num_classes, fold_bn=fold_bn,
+                                stem_input=self.stem_kernel, width_mult=width_mult,
+                                dtype=dtype)
+            sd = state_dict_from_jax(variables, fold_bn)
+        self.model.load_state_dict(sd)
         self.model.requires_grad_(False).eval()
         self.model.to(self.device, memory_format=torch.channels_last)
+        if resnet and fold_bn:
+            # folded, the network holds conv weights and biases alone: keep them in
+            # the dtype the convs read, so no forward casts them again
+            self.model.to(dtype)
+        # what _stage casts host input to (None: the input's own dtype)
+        self._stage_dtype = (torch.bfloat16 if self.stem_kernel
+                             or (resnet and dtype == torch.bfloat16) else None)
 
-        self.priors = torch.as_tensor(P.create_priors(), device=self.device)
+        priors = P.create_priors_coco() if resnet else P.create_priors()
+        self.priors = torch.as_tensor(priors, device=self.device)
         self.quant_params: quant.QuantizedSSD | None = None
         self._int8_forward = None
 
     @classmethod
     def from_weights(cls, path, class_to_idx, fold_bn: bool = True, **kwargs) -> "Detector":
-        """Load a weights-only export (pickle or ``.npz`` bundle); BatchNorm
-        is folded into the convs at load time unless ``fold_bn=False``."""
+        """Load a weights-only export (pickle or ``.npz`` bundle) of the
+        VGG16 network (the JAX package's and the trainer's layout); BatchNorm
+        is folded into the convs at load time unless ``fold_bn=False``.
+        Other architectures raise ``ValueError``: pass their tree as
+        ``variables``."""
+        arch = kwargs.get("architecture", "vgg16")
+        if arch != "vgg16":
+            raise ValueError(f"from_weights loads the vgg16 network's exports; for {arch!r} "
+                             "pass the weights tree as Detector(..., variables=...)")
         blob = load_params(path)
         variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
         return cls(class_to_idx, variables=variables, fold_bn=fold_bn, **kwargs)
@@ -114,7 +166,12 @@ class Detector:
         """Adopt the weights and running statistics of a
         :class:`ssdx_torch.train.step.TrainState` (BN folded when this
         detector serves folded weights).  A quantized detector goes back to
-        its float forward: quantize again on the new weights."""
+        its float forward: quantize again on the new weights.  The train
+        step trains the vgg16 network; other architectures raise
+        ``ValueError``."""
+        if self.architecture != "vgg16":
+            raise ValueError(f"load_train_state takes the vgg16 network's state; this "
+                             f"detector is {self.architecture!r}")
         variables = variables_from_torch(state.model)
         if self.fold_bn:
             variables = fold_batchnorm(variables)
@@ -147,7 +204,13 @@ class Detector:
         GPU kernels (``ops.int8_conv.apply_int8_kernels``), "plain" through
         the PyTorch walk ``quant.apply_int8``; "auto" goes by the detector's
         device: "kernel" on ``cuda``, "plain" on ``cpu``.
+
+        The int8 walk is the vgg16 network's: other architectures raise
+        ``ValueError``.
         """
+        if self.architecture != "vgg16":
+            raise ValueError(f"int8 quantization serves the vgg16 network; this detector is "
+                             f"{self.architecture!r}")
         if not self.fold_bn:
             raise ValueError("int8 quantization requires fold_bn=True")
         if backend == "auto":
@@ -179,9 +242,10 @@ class Detector:
 
         On a CUDA device, host images (a numpy array or a CPU tensor) are
         staged in pinned memory (:meth:`_stage`): cast on the host to
-        bfloat16 when the stem kernel runs (rounding to nearest even, as
-        the card would; the stem's own cast is then a no-op), copied as
-        they are otherwise.  A CUDA tensor, or a CPU detector, is taken by
+        bfloat16 when the stem kernel runs, or the ResNet-50 network runs
+        in bfloat16 (rounding to nearest even, as the card would; the
+        network's own cast is then a no-op), copied as they are otherwise.
+        A CUDA tensor, or a CPU detector, is taken by
         ``torch.as_tensor(images, device=...)``.  The span
         ``ssdx_torch.api.input_copy`` counts the caller's ``input_bytes``
         and the ``staged_bytes`` of them that went through pinned memory.
@@ -211,12 +275,13 @@ class Detector:
 
     def _stage(self, host: torch.Tensor) -> torch.Tensor:
         """``host`` on the card through a pinned buffer, in bfloat16 when the
-        stem kernel reads it.  The caching host allocator records the DMA's
-        event on the buffer and hands it out again only once the DMA is
-        done, so concurrent callers never share one.  Returns when the copy
+        network's first op reads bfloat16 (``_stage_dtype``).  The caching
+        host allocator records the DMA's event on the buffer and hands it
+        out again only once the DMA is done, so concurrent callers never
+        share one.  Returns when the copy
         has landed, as the pageable copy did: the caller's array is free
         again and the input-copy span covers the DMA."""
-        dtype = torch.bfloat16 if self.stem_kernel else host.dtype
+        dtype = self._stage_dtype or host.dtype
         pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True).copy_(host)
         x = pinned.to(self.device, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
@@ -240,8 +305,10 @@ class Detector:
         class_agnostic: bool = False,
         pre_loc_all=None,
         pre_conf_all=None,
+        nms_kind: str | None = None,
     ) -> Detections:
-        """Fixed-shape padded detections (tensors on the detector's device)."""
+        """Fixed-shape padded detections (tensors on the detector's device);
+        NMS by ``nms_kind``'s overlap, by default the detector's."""
         with span("ssdx_torch.api.predict_batched"):
             if pre_loc_all is not None and pre_conf_all is not None:
                 loc = torch.as_tensor(pre_loc_all, device=self.device)
@@ -259,6 +326,7 @@ class Detector:
                 max_per_img=max_per_img,
                 class_agnostic=class_agnostic,
                 variances=self.variances,
+                nms_kind=self.nms_kind if nms_kind is None else nms_kind,
             )
 
     def predict(self, images=None, **kwargs) -> list[dict]:

@@ -1,39 +1,43 @@
-// Greedy DIoU-NMS keep mask over score-sorted candidates, for Hopper (sm_90a).
+// Greedy (D)IoU-NMS keep mask over score-sorted candidates, for Hopper (sm_90a).
 //
 // Replaces: ssdx/ops/pallas_nms.py, nms_core_sorted (the TPU kernels
 // _nms_kernel, K <= 512, and _nms_tiled_kernel, K > 512).
 //
-// Contract: boxes [B,K,4] float32 xyxy, already sorted by score (descending)
-// and offset by class; valid [B,K] bool.  keep[b,j] is true iff valid[b,j]
-// and no KEPT earlier box i < j has DIoU(i, j) > thresh: exact greedy NMS,
-// the same mask as the TPU fixpoint and as the plain version
-// (ssdx_torch/ops/nms.py, nms_core_sorted_ref).
+// Contract: boxes [B,K,4] float32 xyxy, already sorted by score
+// (descending); valid [B,K] bool; labels [B,K] int32 or null.  With the
+// overlap O(i, j) = DIoU(i, j), or IoU(i, j) when the caller asks for IoU,
+// keep[b,j] is true iff valid[b,j] and no KEPT earlier box i < j of the same
+// label (any label, when labels is null) has O(i, j) > thresh: exact greedy
+// per-class NMS on the boxes as they are, the same mask as the plain
+// version (ssdx_torch/ops/nms.py, nms_core_sorted_ref) and, for DIoU, as the
+// TPU fixpoint.
 //
-// Exactness: the mask must equal the plain version's bit for bit, and a
-// DIoU that lands on the threshold decides it (the class offset of 4096
-// leaves float32 coordinates about 5e-4 of precision).  So diou() below is
-// the exact operation sequence of ssdx_torch/boxes.py pairwise_diou, each
-// step rounded on its own (a box's area and centre are computed once, by the
-// same operations), and this file is compiled with -fmad=false so that nvcc
-// contracts no multiply-add into an FMA.  Division is IEEE (no fast-math), as
-// in PyTorch's elementwise kernels.
+// Exactness: the mask must equal the plain version's bit for bit, and an
+// overlap that lands on the threshold decides it.  So iou() and diou() below
+// are the exact operation sequences of ssdx_torch/boxes.py pairwise_iou and
+// pairwise_diou, each step rounded on its own (a box's area and centre are
+// computed once, by the same operations), and this file is compiled with
+// -fmad=false so that nvcc contracts no multiply-add into an FMA.  Division
+// is IEEE (no fast-math), as in PyTorch's elementwise kernels.  Classes are
+// kept apart by comparing labels, not by translating boxes, so the
+// coordinates keep their float32 precision whatever the number of classes.
 //
 // Design: two kernels back to back on one stream; candidates go in chunks
 // of 64, one 64-bit word per chunk.
-//   1. nms_sup_kernel, one block of 64 threads per (row chunk rb, column
-//      chunk cb >= rb, image): only the W(W+1)/2 blocks of the upper
+//   1. nms_sup_kernel<kIoU>, one block of 64 threads per (row chunk rb,
+//      column chunk cb >= rb, image): only the W(W+1)/2 blocks of the upper
 //      triangle are launched, and nothing below it is written.  Bit j of
-//      sup[b][i][cb] is set when i < j, valid[i] and DIoU(i, j) > thresh.
-//      Exact early-out: where the intersection is exactly 0, iou is 0 and
-//      DIoU = -d2 / max(diag2, eps) <= 0 (or NaN), so for thresh >= 0 the
-//      bit is clear without either division.  A thread first tests the 64
-//      columns for a non-zero intersection (a few operations each) and then
-//      runs the full DIoU only on those, so cross-class pairs (the 4096
-//      offset keeps them apart) and distant boxes cost no division; for a
-//      negative thresh every column takes the full path.  The bitmask
-//      ([B][64W][W] words, 320 KB an image at K = 1600) is scratch the
-//      wrapper allocates; rows past K and words below the diagonal are never
-//      written nor used.
+//      sup[b][i][cb] is set when i < j, valid[i], label[i] == label[j] and
+//      O(i, j) > thresh.  Exact early-out: where the intersection is exactly
+//      0, iou is 0 and DIoU = -d2 / max(diag2, eps) <= 0 (or NaN), so for
+//      thresh >= 0 the bit is clear without either division.  A thread first
+//      tests the 64 columns for the same label and a non-zero intersection
+//      (a few operations each) and then runs the full overlap only on those,
+//      so cross-class pairs and distant boxes cost no division; for a
+//      negative thresh every same-label column takes the full path.  The
+//      bitmask ([B][64W][W] words, 320 KB an image at K = 1600) is scratch
+//      the wrapper allocates; rows past K and words below the diagonal are
+//      never written nor used.
 //   2. nms_scan_kernel, one block of 128 threads per image, in chunks of 64
 //      candidates.  The sup rows of a chunk (64 x W words, contiguous) come
 //      into shared memory by one bulk copy on an mbarrier, two chunks ahead
@@ -46,10 +50,12 @@
 //      their keep bytes are written 0.
 // One kernel serves every K up to kMaxWords * 64 = 8192 (128 KB of buffers).
 //
-// Bound: the DIoU of the pairs (i valid, j > i), about 31 float32 operations
-// each, over the card's float32 rate, against reading boxes and valid and
-// writing keep once: a few microseconds at the serving shape (B = 32, K =
-// 400), so launch latency and the serial scan set the pace.
+// Bound: the overlap of the same-label pairs (i valid, j > i), about 31
+// float32 operations each for DIoU and 14 for IoU, and a label compare for
+// every pair, over the card's float32 rate, against reading boxes, labels
+// and valid and writing keep once: a few microseconds at the serving shapes
+// (B = 32, K = 400 or 1600), so launch latency and the serial scan set the
+// pace.
 #include "sm90.cuh"
 
 namespace {
@@ -89,12 +95,18 @@ __device__ __forceinline__ float inter_of(const Cand& a, const Cand& b) {
   return iw * ih;
 }
 
-__device__ __forceinline__ float diou(const Cand& a, const Cand& b) {
-  // iou = inter / max(union, eps)
+constexpr float kEps = (float)1e-7;  // the double 1e-7 rounded to float, as in PyTorch
+
+__device__ __forceinline__ float iou(const Cand& a, const Cand& b) {
+  // inter / max(union, eps)
   const float inter = inter_of(a, b);
   const float uni = (a.area + b.area) - inter;
-  const float eps = (float)1e-7;  // the double 1e-7 rounded to float, as in PyTorch
-  const float iou = inter / fmaxf(uni, eps);
+  return inter / fmaxf(uni, kEps);
+}
+
+__device__ __forceinline__ float diou(const Cand& a, const Cand& b) {
+  const float eps = kEps;
+  const float v = iou(a, b);
   // enclosing box diagonal
   const float ex = fmaxf(a.x1, b.x1) - fminf(a.x0, b.x0);
   const float ey = fmaxf(a.y1, b.y1) - fminf(a.y0, b.y0);
@@ -103,41 +115,52 @@ __device__ __forceinline__ float diou(const Cand& a, const Cand& b) {
   const float dx = a.cx - b.cx;
   const float dy = a.cy - b.cy;
   const float d2 = dx * dx + dy * dy;
-  return iou - d2 / fmaxf(diag2, eps);
+  return v - d2 / fmaxf(diag2, eps);
 }
 
 // blockIdx.x enumerates the upper triangle column by column: column chunk cb
 // holds row chunks 0..cb, at offsets cb(cb+1)/2 ...
+template <bool kIoU>
 __global__ void __launch_bounds__(kCols)
-nms_sup_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid, int K, int W,
-               float thresh, unsigned long long* __restrict__ sup) {
+nms_sup_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
+               const int* __restrict__ labels, int K, int W, float thresh,
+               unsigned long long* __restrict__ sup) {
   const int t = threadIdx.x, b = blockIdx.y, tri = blockIdx.x;
   int cb = (int)((sqrtf(8.0f * (float)tri + 1.0f) - 1.0f) * 0.5f);
   while (cb * (cb + 1) / 2 > tri) --cb;
   while ((cb + 1) * (cb + 2) / 2 <= tri) ++cb;
   const int rb = tri - cb * (cb + 1) / 2;
   const float4* bx = reinterpret_cast<const float4*>(boxes + (size_t)b * K * 4);
+  const int* lab = labels ? labels + (size_t)b * K : nullptr;
   __shared__ Cand cols[kCols];
+  __shared__ int col_label[kCols];
   const int ncols = min(kCols, K - cb * kCols);
-  if (t < ncols) cols[t] = cand_of(bx[cb * kCols + t]);
+  if (t < ncols) {
+    cols[t] = cand_of(bx[cb * kCols + t]);
+    col_label[t] = lab ? lab[cb * kCols + t] : 0;
+  }
   __syncthreads();
   const int i = rb * kCols + t;
   if (i >= K || !valid[(size_t)b * K + i]) return;  // such rows are never read
   const Cand a = cand_of(bx[i]);
+  const int a_label = lab ? lab[i] : 0;
   const int first = cb == rb ? t + 1 : 0;
-  unsigned long long todo = 0ULL;  // columns that need the full DIoU
+  unsigned long long todo = 0ULL;  // columns that need the full overlap
   if (thresh >= 0.0f) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      if (j >= first && j < ncols && inter_of(a, cols[j]) != 0.0f) todo |= 1ULL << j;
-  } else if (first < ncols) {
-    todo = (ncols - first == 64 ? ~0ULL : ((1ULL << (ncols - first)) - 1ULL)) << first;
+      if (j >= first && j < ncols && col_label[j] == a_label && inter_of(a, cols[j]) != 0.0f)
+        todo |= 1ULL << j;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (j >= first && j < ncols && col_label[j] == a_label) todo |= 1ULL << j;
   }
   unsigned long long bits = 0ULL;
   while (todo) {
     const int j = __ffsll((long long)todo) - 1;
     todo &= todo - 1ULL;
-    if (diou(a, cols[j]) > thresh) bits |= 1ULL << j;
+    if ((kIoU ? iou(a, cols[j]) : diou(a, cols[j])) > thresh) bits |= 1ULL << j;
   }
   sup[((size_t)b * W * kCols + i) * W + cb] = bits;
 }
@@ -228,12 +251,13 @@ extern "C" long long ssdx_nms_scratch_words(int K) {
   return W * kCols * W;
 }
 
-// boxes [B,K,4] f32 (16-byte aligned), valid [B,K] u8, sup scratch of
+// boxes [B,K,4] f32 (16-byte aligned), valid [B,K] u8, labels [B,K] i32 or
+// null (class-agnostic), iou: 1 for IoU, 0 for DIoU; sup scratch of
 // B * ssdx_nms_scratch_words(K) u64, keep [B,K] u8 out.  Returns
 // cudaGetLastError() after the launches.
-extern "C" int ssdx_nms_keep(const float* boxes, const uint8_t* valid, int B, int K,
-                             float thresh, unsigned long long* sup, uint8_t* keep,
-                             cudaStream_t stream) {
+extern "C" int ssdx_nms_keep(const float* boxes, const uint8_t* valid, const int* labels, int B,
+                             int K, float thresh, int iou, unsigned long long* sup,
+                             uint8_t* keep, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return 0;
   if (K > ssdx_nms_max_k()) return (int)cudaErrorInvalidValue;
   const int W = (K + kCols - 1) / kCols;
@@ -245,8 +269,11 @@ extern "C" int ssdx_nms_keep(const float* boxes, const uint8_t* valid, int B, in
   e = sm90::reserve_smem((const void*)nms_scan_kernel, 2 * kCols * kMaxWords * 8, dev,
                          configured);
   if (e != cudaSuccess) return (int)e;
-  nms_sup_kernel<<<dim3(W * (W + 1) / 2, B), kCols, 0, stream>>>(boxes, valid, K, W, thresh,
-                                                                 sup);
+  const dim3 grid(W * (W + 1) / 2, B);
+  if (iou)
+    nms_sup_kernel<true><<<grid, kCols, 0, stream>>>(boxes, valid, labels, K, W, thresh, sup);
+  else
+    nms_sup_kernel<false><<<grid, kCols, 0, stream>>>(boxes, valid, labels, K, W, thresh, sup);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   nms_scan_kernel<<<B, kScanThreads, smem, stream>>>(sup, valid, K, W, keep);

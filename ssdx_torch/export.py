@@ -25,7 +25,9 @@ def fold_batchnorm(variables: dict, eps: float = _BN_EPS) -> dict:
     """Return ``{"params": ...}`` for the ``fold_bn=True`` model variant.
 
     Modules without BatchNorm (heads, the BN-free extra convs) pass through;
-    folded kernels and biases are float32 tensors.
+    folded kernels and biases are float32 tensors.  A conv with no bias (as
+    every conv before a BatchNorm of :mod:`ssdx_torch.model_resnet`) folds
+    as one whose bias is 0.
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
@@ -39,7 +41,8 @@ def fold_batchnorm(variables: dict, eps: float = _BN_EPS) -> dict:
         mod_stats = stats[name]["BatchNorm_0"]
         s = t(bn["scale"]) / torch.sqrt(t(mod_stats["var"]) + eps)
         kernel = t(conv["kernel"]) * s  # [kh, kw, cin, cout] * [cout]
-        bias = (t(conv["bias"]) - t(mod_stats["mean"])) * s + t(bn["bias"])
+        b = t(conv["bias"]) if "bias" in conv else 0.0
+        bias = (b - t(mod_stats["mean"])) * s + t(bn["bias"])
         return {"Conv_0": {"kernel": kernel, "bias": bias}}
 
     return {"params": {name: fold_module(name, mod) for name, mod in params.items()}}

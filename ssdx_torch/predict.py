@@ -8,7 +8,8 @@ and no host synchronisation on the GPU:
   2. softmax only for those priors; stage-2 top ``top_k_candidates``
      (prior, class) pairs;
   3. decode at stage-1 granularity to 300x300-pixel xyxy, clipped;
-  4. batched per-class greedy DIoU-NMS (:mod:`ssdx_torch.nms`);
+  4. batched per-class greedy NMS (:mod:`ssdx_torch.nms`) by DIoU, or by
+     IoU with ``nms_kind="iou"`` (NVIDIA's SSD300 v1.1);
   5. final top ``max_per_img`` among the kept, valid pairs.
 
 ``prior_top_k``/``top_k_candidates`` default to 200/400, widened to
@@ -67,8 +68,12 @@ def postprocess(
     top_k_candidates: int | None = None,
     prior_top_k: int | None = None,
     variances: tuple[float, float] = (0.1, 0.2),
+    nms_kind: str = "diou",
 ) -> Detections:
-    """Decode + threshold + NMS for a whole batch."""
+    """Decode + threshold + NMS for a whole batch.  The span
+    ``ssdx_torch.predict.postprocess`` counts the stage-2 candidates
+    (``nms_candidates``), B x K (``nms_slots``) and the candidates NMS keeps
+    (``nms_kept``)."""
     if not (0.0 <= score_thresh < 1.0):
         raise ValueError(f"score_thresh must be in [0, 1), got {score_thresh}")
     if not (0.0 < nms_thresh < 1.0):
@@ -101,7 +106,8 @@ def postprocess(
         xyxy = _take(xyxy_p, pair_idx // n_fg)
 
         keep = batched_nms_mask(xyxy, top_scores, valid, cls_idx, nms_thresh,
-                                class_aware=not class_agnostic)
+                                class_aware=not class_agnostic, kind=nms_kind)
+        sp.count(nms_kept=keep & valid)
 
         kept_scores = torch.where(keep & valid, top_scores, torch.full_like(top_scores, -1.0))
         final_scores, sel = _top_k(kept_scores, max_per_img)

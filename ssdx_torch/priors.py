@@ -5,6 +5,12 @@ The port's own copy of the numpy construction in the JAX package
 per location are [(s, s), (s', s'), then for each aspect ratio a:
 (s*sqrt a, s/sqrt a), (s/sqrt a, s*sqrt a)]; the multibox heads flatten
 their outputs in the same (H, W, k) order (``ssdx_torch/model.py``).
+
+:func:`create_priors_coco` builds the default boxes of NVIDIA's SSD300
+v1.1 (``dboxes300_coco`` in DeepLearningExamples' ``ssd/utils.py``), which
+the ResNet-50 network (``ssdx_torch/model_resnet.py``) is trained on: the
+same levels and boxes per location, sized from pixel scales and centred by
+the levels' strides, in the same (H, W, k) order.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ __all__ = [
     "BOXES_PER_LOCATION",
     "NUM_PRIORS",
     "create_priors",
+    "create_priors_coco",
     "priors_xyxy",
 ]
 
@@ -74,6 +81,42 @@ def create_priors(
         eps = 1e-6
         priors[:, 0:2] = np.clip(priors[:, 0:2], 0.0, 1.0)
         priors[:, 2:4] = np.clip(priors[:, 2:4], eps, 1.0)
+    return priors
+
+
+# dboxes300_coco: figure size, strides and the 7 pixel scales of the levels
+COCO_FIG_SIZE = 300
+COCO_STEPS = (8, 16, 32, 64, 100, 300)
+COCO_SCALES = (21, 45, 99, 153, 207, 261, 315)
+
+
+def create_priors_coco() -> np.ndarray:
+    """Return NVIDIA's [8732, 4] (cx, cy, w, h) default boxes, float32.
+
+    Level l has fk = 300 / step[l] (37.5 at the 38x38 level) and centres
+    ((j + 0.5) / fk, (i + 0.5) / fk); its boxes are (sk1, sk1), (sk2, sk2)
+    with sk1 = scale[l] / 300 and sk2 = sqrt(sk1 * scale[l+1] / 300), then
+    (sk1 sqrt a, sk1 / sqrt a) both ways for each aspect ratio a.  Every
+    column is clamped to [0, 1], as ``DefaultBoxes`` does; computed in
+    float64, rounded once to float32.
+    """
+    chunks = []
+    for l, (H, W) in enumerate(FEATURE_MAP_SIZES):
+        fk = COCO_FIG_SIZE / COCO_STEPS[l]
+        sk1 = COCO_SCALES[l] / COCO_FIG_SIZE
+        sk2 = np.sqrt(sk1 * COCO_SCALES[l + 1] / COCO_FIG_SIZE)
+        whs = [(sk1, sk1), (sk2, sk2)]
+        for a in ASPECT_RATIOS_PER_LEVEL[l]:
+            r = np.sqrt(a)
+            whs += [(sk1 * r, sk1 / r), (sk1 / r, sk1 * r)]
+        cy, cx = np.meshgrid((np.arange(H) + 0.5) / fk, (np.arange(W) + 0.5) / fk,
+                             indexing="ij")
+        level = np.empty((H, W, len(whs), 4))
+        level[..., 0], level[..., 1] = cx[..., None], cy[..., None]
+        level[..., 2:] = np.asarray(whs)[None, None]
+        chunks.append(level.reshape(-1, 4))
+    priors = np.clip(np.concatenate(chunks), 0.0, 1.0).astype(np.float32)
+    assert priors.shape == (NUM_PRIORS, 4)
     return priors
 
 

@@ -3,9 +3,10 @@
     python -m ssdx_torch.tools.profile_split [nms|brp|all] [--iters 10]
 
 B1 (``ops.nms.nms_core_sorted``, ``csrc/nms.cu``): B=32 at K=400 (serving)
-and K=1600 (eval), class-aware candidates, threshold 0.3, as ``chip_smoke.py``
-phase 7 times it.  B6 (``ops.bn_relu_pool.bn_relu_pool``,
-``csrc/bn_relu_pool.cu``): one forward + backward, cotangents for all three
+and K=1600 (eval), candidates kept apart by the class offset, DIoU at
+0.3, as ``chip_smoke.py`` phase 7 times it; then K=1600 by IoU at 0.5 over
+5 labels handed to the kernel (the ResNet-50 network's postprocess).
+B6 (``ops.bn_relu_pool.bn_relu_pool``, ``csrc/bn_relu_pool.cu``): one forward + backward, cotangents for all three
 outputs, at the four shapes of ``tools/check_brp.py``'s ``BRP_CASES`` in bf16.
 
 Each case runs ``--iters`` calls over distinct inputs inside one
@@ -38,8 +39,11 @@ from ssdx_torch.tools.check_nms import nms_inputs
 PEAK_F32 = 67e12   # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 NMS_OPS_PER_PAIR = 31  # float32 operations of one DIoU + compare
+IOU_OPS_PER_PAIR = 14  # of one IoU + compare
 WINDOW_PAD_S = 0.025   # idle seconds at each end of a window (tools/bench_int8_mm.py)
-NMS_CASES = ((32, 400), (32, 1600))
+# (B, K, overlap, threshold, classes kept apart by)
+NMS_CASES = ((32, 400, "diou", 0.3, "offset"), (32, 1600, "diou", 0.3, "offset"),
+             (32, 1600, "iou", 0.5, "labels"))
 
 
 def card() -> str:
@@ -48,13 +52,19 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def nms_bound(valid) -> tuple[float, str]:
+def nms_bound(valid, labels=None) -> tuple[float, str]:
     """Least ms of B1 on these inputs: the DIoU of every pair (i valid, j > i)
-    at the float32 rate, against reading boxes and valid and writing keep."""
+    at the float32 rate, against reading boxes and valid and writing keep;
+    with ``labels``, a label compare for every such pair and the IoU of the
+    same-label ones."""
     B, K = valid.shape
     n_valid = valid.sum(dim=1).tolist()
     pairs = sum(n * (K - 1) - n * (n - 1) // 2 for n in n_valid)
-    t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_F32
+    if labels is None:
+        t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_F32
+    else:
+        same = (labels[:, :, None] == labels[:, None, :]).triu(1) & valid[:, :, None]
+        t_ops = (pairs + int(same.sum()) * IOU_OPS_PER_PAIR) / PEAK_F32
     t_bytes = (B * K * (16 + 1) + B * K) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
@@ -139,16 +149,16 @@ def show(title, res, tail, log) -> float | None:
 def nms_split(iters=10, log=print) -> list:
     dev = torch.device("cuda")
     out = []
-    for B, K in NMS_CASES:
-        ins = [nms_inputs(dev, B, K, seed=K + s) for s in range(4)]
-        fn = lambda i: nms_ops.nms_core_sorted(*ins[i], 0.3)
+    for B, K, kind, thresh, classes in NMS_CASES:
+        ins = [nms_inputs(dev, B, K, seed=K + s, class_aware=classes) for s in range(4)]
+        fn = lambda i: nms_ops.nms_core_sorted(ins[i][0], ins[i][1], thresh, ins[i][2], kind)
         res = split(fn, ins, iters)
         ev = events_ms(fn, len(ins))
-        bound, by = nms_bound(ins[0][1])
-        total = show(f"B1 B={B} K={K}", res,
+        bound, by = nms_bound(ins[0][1], ins[0][2])
+        total = show(f"B1 B={B} K={K} {kind} by {classes}", res,
                      f"{ev:.4f} ms by events; bound {bound:.5f} ms by {by}", log)
-        out.append({"B": B, "K": K, "device_ms": total, "events_ms": ev, "bound_ms": bound,
-                    "split": res})
+        out.append({"B": B, "K": K, "kind": kind, "classes": classes, "device_ms": total,
+                    "events_ms": ev, "bound_ms": bound, "split": res})
     return out
 
 

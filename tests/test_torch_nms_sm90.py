@@ -3,8 +3,8 @@ only on the card.
 
 The model walks the two kernels as they run: nms_sup_kernel's blocks over
 the upper triangle only (the column-major enumeration and its float32
-square root), each thread testing its 64 columns for a non-zero
-intersection before the full DIoU (the exact early-out); then
+square root), each thread testing its 64 columns for the same label and a
+non-zero intersection before the full IoU or DIoU (the exact early-out); then
 nms_scan_kernel's chunks of 64 candidates, each staged as 64 rows x W
 words into one of two buffers (the mbarrier phase it waits on), the 64
 decisions resolved from the diagonal words in a serial chain, the kept
@@ -71,14 +71,18 @@ def full_path(inter, thresh):
     return inter != 0 if thresh >= 0 else torch.ones_like(inter, dtype=torch.bool)
 
 
-def sup_kernel(boxes, valid, thresh, rng):
-    """The words nms_sup_kernel writes, in its [B][64W][W] scratch filled
-    with garbage first, and which of them it wrote."""
+def sup_kernel(boxes, valid, thresh, rng, labels=None, kind="diou"):
+    """The words nms_sup_kernel<kind == "iou"> writes, in its [B][64W][W]
+    scratch filled with garbage first, and which of them it wrote; with
+    ``labels``, only same-label columns take the overlap."""
     B, K = valid.shape
     W = -(-K // COLS)
     words = rng.integers(0, ALL, size=(B, COLS * W, W), dtype=np.uint64, endpoint=True)
     written = np.zeros(words.shape, bool)
-    hit = (full_path(inter_of(boxes), thresh) & (pairwise_diou(boxes, boxes) > thresh)).numpy()
+    todo = full_path(inter_of(boxes), thresh)
+    if labels is not None:
+        todo &= labels[:, :, None] == labels[:, None, :]
+    hit = (todo & (nms_ops.KINDS[kind](boxes, boxes) > thresh)).numpy()
     v = valid.numpy()
     seen = set()
     for tri in range(W * (W + 1) // 2):
@@ -266,6 +270,51 @@ def test_triangle_enumeration(W):
     assert "W * (W + 1) / 2" in SRC
 
 
+@pytest.mark.parametrize("kind", ["iou", "diou"])
+@pytest.mark.parametrize("K", [65, 400])
+def test_block_scan_per_label_near_threshold(K, kind):
+    """80 classes, pairs 1e-4 either side of the threshold 0.5 by IoU or
+    DIoU (``tools/check_nms.py``'s coco case), classes kept apart by the
+    labels the kernel compares: the modelled kernel equals the plain
+    version, which equals a float64 per-class greedy loop."""
+    from ssdx_torch.tools.check_nms import near_threshold
+
+    boxes, valid, labels = near_threshold(torch.device("cpu"), 2, K, K, kind)
+    words, written = sup_kernel(boxes, valid, 0.5, np.random.default_rng(K), labels, kind)
+    got = scan_kernel(words, written, valid)
+    ref = nms_ops.nms_core_sorted_ref(boxes, valid, 0.5, labels, kind)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, greedy_f64(boxes, valid, labels, 0.5, kind))
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+def test_cross_label_pairs_take_no_overlap():
+    """The early-out tests the label before the intersection: a kept box
+    suppresses nothing of another label, however it overlaps."""
+    assert "col_label[j] == a_label && inter_of(a, cols[j]) != 0.0f" in SRC
+    assert "if (j >= first && j < ncols && col_label[j] == a_label) todo" in SRC
+    boxes = torch.tensor([[[0.0, 0, 10, 10]] * 4])  # duplicates
+    valid = torch.ones((1, 4), dtype=torch.bool)
+    labels = torch.tensor([[0, 1, 0, 1]], dtype=torch.int32)
+    for thresh in (0.3, -0.5):
+        words, written = sup_kernel(boxes, valid, thresh, np.random.default_rng(0), labels, "iou")
+        assert scan_kernel(words, written, valid).tolist() == [[True, True, False, False]]
+
+
+def greedy_f64(boxes, valid, labels, thresh, kind):
+    """Greedy per-class NMS in float64, candidate by candidate."""
+    o = nms_ops.KINDS[kind](boxes.double(), boxes.double())
+    keep = torch.zeros_like(valid)
+    for b in range(boxes.shape[0]):
+        kept = []
+        for j in range(boxes.shape[1]):
+            if valid[b, j] and not any(labels[b, i] == labels[b, j] and o[b, i, j] > thresh
+                                       for i in kept):
+                kept.append(j)
+        keep[b, kept] = True
+    return keep
+
+
 def test_model_equals_jax_package(monkeypatch):
     """The modelled kernel through batched_nms_mask's layout, against the
     JAX package's fixpoint (XLA) on the same numpy inputs."""
@@ -279,8 +328,8 @@ def test_model_equals_jax_package(monkeypatch):
     ref = np.asarray(jax_nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
                              jnp.asarray(labels), 0.3, class_aware=True, backend="xla"))
 
-    def modelled(b, v, thresh):
-        words, written = sup_kernel(b, v, thresh, rng)
+    def modelled(b, v, thresh, labels=None, kind="diou"):
+        words, written = sup_kernel(b, v, thresh, rng, labels, kind)
         return scan_kernel(words, written, v)
 
     monkeypatch.setattr(nms_mod, "nms_core_sorted", modelled)

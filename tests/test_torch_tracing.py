@@ -182,7 +182,9 @@ def test_nms_candidates_count_the_scores_above_the_threshold(detector):
     (pp,) = [r for r in profiling.recent_spans() if r.name == "ssdx_torch.predict.postprocess"]
     want = _candidates_apart(loc, conf, 0.3)
     assert 0 < want < B * 400
+    kept = pp.counts.pop("nms_kept")  # the candidates NMS keeps
     assert pp.counts == {"nms_candidates": want, "nms_slots": B * 400}
+    assert 0 < kept < want
 
 
 def test_the_log_keeps_the_newest_records_up_to_its_bound():
