@@ -20,4 +20,39 @@ launches its kernel for a CUDA tensor (or raises); it never falls back.
 Each module keeps a plain integer ``launches`` that its wrapper bumps once
 per kernel launch; ``stem_train`` bumps it once per forward, which launches
 the forward's kernels (its backward's launches follow from that forward).
+:func:`launch_counts`, :func:`launches_since` and :func:`add_launches` read
+and move every such counter at once, so a CUDA graph's replays count what
+its capture recorded.
 """
+import sys
+
+__all__ = ["launch_counts", "launches_since", "add_launches"]
+
+
+def launch_counts() -> dict:
+    """Every launch counter (an integer whose name starts with ``launches``)
+    of the kernel modules imported so far, by ``(module, name)``."""
+    out = {}
+    for mod_name, mod in list(sys.modules.items()):
+        if mod is not None and mod_name.startswith(__name__ + "."):
+            for k, v in vars(mod).items():
+                if k.startswith("launches") and type(v) is int:
+                    out[(mod_name, k)] = v
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The counters that moved since ``before`` (a :func:`launch_counts`),
+    and by how much."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
+            if v != before.get(k, 0)}
+
+
+def add_launches(launched: dict, times: int = 1) -> None:
+    """Add ``times`` x ``launched`` (a :func:`launches_since`) to the
+    counters.  A CUDA graph's capture bumps the counters of the kernels it
+    records but runs none: its owner takes them back (``times=-1``) and
+    adds them once a replay, so every counter counts launches that ran."""
+    for (mod_name, k), n in launched.items():
+        mod = sys.modules[mod_name]
+        setattr(mod, k, getattr(mod, k) + times * n)

@@ -19,9 +19,20 @@ the stem kernel), the loss divides by the global batch's positive count, the
 gradients are summed over the ranks in one flat buffer before the optimizer
 step, and the reported metrics are the global ones on every rank.
 
+On a CUDA device without a ``mesh`` or NaN checks, the forward, targets,
+loss and backward of the first step's batch layout are replayed from a CUDA
+graph (see :class:`_StepGraph`): the host then enqueues the step with one
+call instead of the many small launches of Python and autograd, and the
+card no longer waits between them.  The optimizer and the scheduler stay
+eager, after the replay, so the learning rate stays a float in
+``param_groups``.  A replay launches the same kernels on the same data in
+the same order as the eager step, so the two agree bit for bit.
+
 The step's phases (batch copy, forward, targets and loss, backward,
 optimizer) are spans of :func:`ssdx_torch.utils.profiling.span`, which do
-nothing unless a profiler runs.
+nothing unless a profiler runs.  The step's span counts ``steps`` (1) and
+``replayed`` (1 when the graph ran it); under a replay the forward, targets
+and loss and backward spans do not run.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from ..losses import multibox_loss
 from ..matching import build_targets
 from ..mesh import all_reduce_sum, broadcast_
 from ..model import update_running_stats
+from .. import ops
 from ..ops.stem_train import stem_train
 from ..predict import Detections, postprocess
 from ..utils import debug
@@ -108,9 +120,13 @@ def _global_pos(pos_mask, mesh, img_valid=None):
     return torch.clamp(all_reduce_sum(posf.sum(), mesh), min=1.0)
 
 
-def _global_metrics(total, loc_l, conf_l, mesh) -> dict:
-    """The three losses of the global batch: the ranks' shares added up."""
-    m = all_reduce_sum(torch.stack([total.detach(), loc_l.detach(), conf_l.detach()]), mesh)
+def _global_losses(total, loc_l, conf_l, mesh):
+    """The three losses of the global batch, stacked: the ranks' shares
+    added up."""
+    return all_reduce_sum(torch.stack([total.detach(), loc_l.detach(), conf_l.detach()]), mesh)
+
+
+def _metrics(m) -> dict:
     return {"loss": m[0], "loss_loc": m[1], "loss_conf": m[2]}
 
 
@@ -120,6 +136,97 @@ def _all_reduce_grads(params, mesh) -> None:
     flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
     for g, chunk in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(chunk.view_as(g))
+
+
+def _graphable(dev, mesh) -> bool:
+    """Whether the steps of a model on ``dev`` under ``mesh`` replay from a
+    CUDA graph (those without NaN checks): a CUDA device and no mesh, whose
+    collectives stay eager."""
+    return dev.type == "cuda" and mesh is None
+
+
+def _storage(model) -> tuple:
+    """Where the model's parameters and buffers live, and which parameters
+    take a gradient: what a captured step reads and writes."""
+    return (tuple((p.data_ptr(), p.requires_grad) for p in model.parameters())
+            + tuple(b.data_ptr() for b in model.buffers()))
+
+
+class _Captured(NamedTuple):
+    """One captured step: the graph, the batch buffers it reads, the stacked
+    losses and the gradients it writes, and the kernel launches it makes
+    (:func:`ssdx_torch.ops.launches_since`)."""
+
+    graph: Any
+    batch: Batch
+    losses: torch.Tensor
+    params: list
+    grads: list
+    launched: dict
+
+
+class _StepGraph:
+    """A CUDA graph of ``losses(state, batch)`` (forward, targets, loss and
+    backward) for the batch layout (shapes and dtypes) of the first step.
+
+    The first step runs eagerly on the capture stream: the warm-up that
+    capture needs (cuDNN's plans, cuBLAS's workspace on that stream).  The
+    second step of that layout is captured, then replayed like every later
+    one, so no step runs twice; a step of another layout runs eagerly.  A
+    replay copies the batch into the graph's own buffers and writes the same
+    gradient tensors every time, as an eager backward after
+    ``zero_grad(set_to_none=True)`` writes fresh ones; the caller's
+    optimizer reads them.  The running statistics' updates are in-place
+    copies inside the graph.  Once the model's tensors move (or another
+    model comes), the graph is dropped and the next step warms up anew."""
+
+    def __init__(self, losses, dev):
+        self.losses, self.dev = losses, dev
+        self.layout = self.storage = self.graph = self.stream = None
+
+    def __call__(self, state: TrainState, batch: Batch):
+        """``(stacked losses, replayed)`` for one step."""
+        layout = tuple((tuple(t.shape), t.dtype) for t in batch)
+        storage = _storage(state.model)
+        if storage != self.storage:
+            self.layout, self.storage, self.graph = layout, storage, None
+            return self._warm_up(state, batch), False
+        if layout != self.layout:
+            return self.losses(state, batch), False
+        if self.graph is None:
+            self.graph = self._capture(state, batch)
+        return self._replay(self.graph, batch), True
+
+    def _warm_up(self, state: TrainState, batch: Batch):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.dev)
+        main = torch.cuda.current_stream(self.dev)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = self.losses(state, batch)
+        main.wait_stream(self.stream)
+        return out
+
+    def _capture(self, state: TrainState, batch: Batch) -> _Captured:
+        static = Batch(*(torch.empty_like(t) for t in batch))
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+            out = self.losses(state, static)
+        launched = ops.launches_since(before)
+        ops.add_launches(launched, -1)  # the capture ran none; each replay counts them
+        params = list(state.model.parameters())
+        return _Captured(graph, static, out, params, [p.grad for p in params], launched)
+
+    def _replay(self, g: _Captured, batch: Batch):
+        for dst, src in zip(g.batch, batch):
+            dst.copy_(src)
+        g.graph.replay()
+        for p, grad in zip(g.params, g.grads):
+            if p.grad is not grad:  # an eager step of another layout replaced it
+                p.grad = grad
+        ops.add_launches(g.launched)
+        return g.losses.clone()
 
 
 def make_train_step(
@@ -162,24 +269,36 @@ def make_train_step(
         update_running_stats(l1.bn, m2, v2)
         return out
 
+    def losses(state: TrainState, batch: Batch):
+        """Forward, targets, loss and backward: the stacked losses, with the
+        gradients in the parameters' ``grad``."""
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("ssdx_torch.train.forward"):
+            loc, cls = forward(state, batch.images)
+        with span("ssdx_torch.train.targets_loss"):
+            tg = build_targets(batch.gt_boxes, batch.gt_labels, batch.gt_valid,
+                               priors_cxcywh, priors_xyxy, iou_thresh)
+            total_pos = None if mesh is None else _global_pos(tg.pos, mesh)
+            total, loc_l, conf_l = multibox_loss(loc, cls, tg.loc, tg.cls, tg.pos,
+                                                 neg_pos_ratio, total_pos=total_pos)
+        with span("ssdx_torch.train.backward"):
+            total.backward()
+        if mesh is not None:
+            _all_reduce_grads(list(state.model.parameters()), mesh)
+        return _global_losses(total, loc_l, conf_l, mesh)
+
+    graph = _StepGraph(losses, dev) if _graphable(dev, mesh) else None
+
     def train_step(state: TrainState, batch: Batch):
-        with span("ssdx_torch.train.step"):
+        with span("ssdx_torch.train.step", steps=1) as step_span:
             with span("ssdx_torch.train.batch_copy"):
                 batch = _on(dev, batch)
-            state.optimizer.zero_grad(set_to_none=True)
-            with span("ssdx_torch.train.forward"):
-                loc, cls = forward(state, batch.images)
-            with span("ssdx_torch.train.targets_loss"):
-                tg = build_targets(batch.gt_boxes, batch.gt_labels, batch.gt_valid,
-                                   priors_cxcywh, priors_xyxy, iou_thresh)
-                total_pos = None if mesh is None else _global_pos(tg.pos, mesh)
-                total, loc_l, conf_l = multibox_loss(loc, cls, tg.loc, tg.cls, tg.pos,
-                                                     neg_pos_ratio, total_pos=total_pos)
-            with span("ssdx_torch.train.backward"):
-                total.backward()
-            if mesh is not None:
-                _all_reduce_grads(list(state.model.parameters()), mesh)
-            metrics = _global_metrics(total, loc_l, conf_l, mesh)
+            if graph is not None and not debug.nan_checks_enabled():
+                stacked, replayed = graph(state, batch)
+            else:
+                stacked, replayed = losses(state, batch), False
+            step_span.count(replayed=int(replayed))
+            metrics = _metrics(stacked)
             if debug.nan_checks_enabled():
                 debug.check_finite_loss(metrics["loss"], state.step)
             with span("ssdx_torch.train.optimizer"):
@@ -225,6 +344,6 @@ def make_eval_step(
                                              img_valid=img_valid, total_pos=total_pos)
         det: Detections = postprocess(loc, cls, priors_cxcywh, score_thresh=score_thresh,
                                       nms_thresh=nms_thresh, max_per_img=max_per_img)
-        return _global_metrics(total, loc_l, conf_l, mesh), det
+        return _metrics(_global_losses(total, loc_l, conf_l, mesh)), det
 
     return eval_step
