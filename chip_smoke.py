@@ -213,17 +213,13 @@ from ssdx_torch.tools import overfit_check
 from ssdx_torch.tools import profile_split
 from ssdx_torch.tools import repro_dist_kernels as repro_tool
 from ssdx_torch.tools import stem_train_experiments as stem_tool
+from ssdx_torch.tools.roofline import PEAK_BF16, PEAK_BYTES, PEAK_F32, PEAK_INT8, bound_ms
 from ssdx_torch.train.checkpoint import load_checkpoint
 from ssdx_torch.train.sharded_checkpoint import save_checkpoint_sharded
 from ssdx_torch.train.loop import fit
 from ssdx_torch.train.schedule import build_optimizer
 from ssdx_torch.train.step import Batch, create_train_state, make_eval_step, make_train_step
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 # Device ms by launch of the kernels before this design, on an NVIDIA H100 80GB
 # HBM3 at 700 W (tools/profile_split.py on commit fd70a8a; PERF.md)
 BEFORE_NMS_SPLIT = {400: "scan 0.0768 + sup 0.0258 = 0.1026 ms",
@@ -409,7 +405,7 @@ def timing(dev, det, launches, errs):
         F.relu(F.conv2d(x, w1, b1, padding=1)), w2, b2, padding=1)), 2), xs_cl)
     ops = 2 * BS * 300 * 300 * 64 * (27 + 576)
     nbytes = BS * 300 * 300 * 3 * 2 + BS * 150 * 150 * 64 * 2 + (64 * 27 + 64 * 576) * 2 + 128 * 4
-    bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    bound, bound_by = bound_ms(ops, nbytes)
     log(f"stem kernel bs={BS}: {stem_ms:.4f} ms by events, "
         f"{bench_int8_mm.fmt(stem_dev, '.4f')} ms on the device (profiler), "
         f"library (cuDNN conv+conv+pool, bf16) "
@@ -419,8 +415,7 @@ def timing(dev, det, launches, errs):
         "name": "stem_conv_pool", "route": "cuda", "source": "ssdx_torch/csrc/stem.cu",
         "replaces": "ssdx/ops/pallas_stem.py:293", "launches": launches["stem"],
         "max_abs_err": errs["stem"]["max_abs_err"], "ms": stem_ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": "operations" if ops / PEAK_BF16 > nbytes / PEAK_BYTES
-        else "bytes", "library_ms": lib_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     }]
 
     # nms at the serving (K=400) and eval (K=1600) candidate counts
@@ -581,8 +576,7 @@ def stem_train_bound(B):
     params = 64 * 27 + 64 * 576 + 6 * 64
     nbytes = (B * 300 * 300 * 3 * 2 + B * 150 * 150 * 64 * 2 * 2  # x, dp, p
               + 2 * params * 4 + 4 * 64 * 4)                      # weights, grads, stats
-    t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), ops, nbytes
+    return (*bound_ms(ops, nbytes), ops, nbytes)
 
 
 def b3_split_row(split, library) -> dict | None:
@@ -817,8 +811,7 @@ def int8_bound(layer):
     out_bytes = {"int8": 1, "f32": 2, "both": 3}[layer.emit]  # int8 + bf16 tap
     nbytes = (BS * layer.H * layer.H * layer.cin + layer.k * layer.k * layer.cin * layer.cout
               + 12 * layer.cout + M * layer.cout * out_bytes)
-    t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", ops
+    return (*bound_ms(ops, nbytes, PEAK_INT8), ops)
 
 
 def int8_layer_library(layer, w):
@@ -1359,7 +1352,7 @@ def repro_timing(dev) -> dict:
     assert floor is not None, "the profiler lost the empty kernel's records in every window"
     ew_lib_dev = device_ms(ew_lib, [(x,) for x in xs], iters=50)
     ew_bytes, ew_ops = 2 * n * 4, 2 * n
-    ew_bound = max(ew_bytes / PEAK_BYTES, ew_ops / PEAK_F32) * 1e3
+    ew_bound = bound_ms(ew_ops, ew_bytes, PEAK_F32)[0]
     log(f"ew kernel [256,256] f32: {ew_ms:.5f} ms by events, {fmt(ew_dev, '.5f')} ms on the "
         f"device; plain and library (torch.tanh(x) * 1.5, two launches) {ew_plain:.5f} ms by "
         f"events, {fmt(ew_lib_dev, '.5f')} ms on the device; bound {ew_bound:.6f} ms by bytes "

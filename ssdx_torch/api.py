@@ -9,23 +9,24 @@ post-processing runs the NMS kernel.  ``Detector.quantize_int8`` switches
 the post-stem backbone to int8 (``ssdx_torch/quant.py``), which on the GPU
 runs through the int8 conv kernels (``ssdx_torch/ops/int8_conv.py``).
 
-``architecture`` picks the network: "vgg16" (the default, SSD300 on
-VGG16+BN, ``ssdx_torch/model.py``, DIoU-NMS) or "resnet50" (NVIDIA's SSD300
-v1.1 on a ResNet-50 trunk with its own default boxes and IoU-NMS,
-``ssdx_torch/model_resnet.py``; served in its dtype with no stem kernel and
-no int8 path).  Both serve through the same ``forward``, ``predict_batched``
-and ``to_pylist``.
+``architecture`` picks the network class from :data:`NETWORKS`: "vgg16"
+(the default, SSD300 on VGG16+BN, ``ssdx_torch/model.py``) or "resnet50"
+(NVIDIA's SSD300 v1.1 on a ResNet-50 trunk, ``ssdx_torch/model_resnet.py``;
+no stem kernel and no int8 path).  Each class states its random
+initialiser, its priors and its NMS overlap, and holds its weights in the
+dtype it reads them in; both load their trees through
+:func:`ssdx_torch.weights.state_dict_from_jax` and serve through the same
+``forward``, ``predict_batched`` and ``to_pylist``.
 
 Host images (a numpy array or a CPU tensor) reach a CUDA detector staged
-in pinned host memory: the host casts (or copies) the batch into a buffer
-of PyTorch's caching host allocator, which is reused from call to call,
-and one asynchronous DMA carries it to the card.  With the stem kernel the
-buffer holds bfloat16, what the stem reads: the host's cast rounds to
-nearest even, as the card's does, so the stem gets the same bits for half
-the bytes across PCIe.  The ResNet-50 network in bfloat16 is staged in
-bfloat16 too: its first conv reads the input in its dtype.  A CUDA
-tensor, or a detector on the CPU, takes the plain
-``torch.as_tensor(images, device=...)``.
+in pinned host memory: the host casts the batch to the detector's dtype
+into a buffer of PyTorch's caching host allocator, which is reused from
+call to call, and one asynchronous DMA carries it to the card.  Every
+first op on the input (the stem kernel, the networks' own forwards, the
+int8 path's plain stem) casts it to that dtype, and the host's cast rounds
+to nearest even, as the card's does, so the network gets the same bits,
+for half the bytes across PCIe in bfloat16.  A CUDA tensor, or a detector
+on the CPU, takes the plain ``torch.as_tensor(images, device=...)``.
 Under a running profiler ``predict_batched``, the input copy and the
 network are spans (:func:`ssdx_torch.utils.profiling.span`).
 """
@@ -34,21 +35,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import model_resnet, quant, resolve_device
-from . import priors as P
+from . import quant, resolve_device
 from .export import fold_batchnorm
 from .mesh import all_gather_batch, shard_batch
-from .model import IMAGE_SIZE, SSD300, init_variables
+from .model import IMAGE_SIZE, SSD300
+from .model_resnet import SSD300ResNet50
 from .ops.int8_conv import apply_int8_kernels
 from .ops.stem import stem_conv_pool
 from .predict import Detections, postprocess, to_pylist
 from .utils.profiling import span
 from .weights import load_params, state_dict_from_jax, variables_from_torch
 
-__all__ = ["Detector", "ARCHITECTURES"]
+__all__ = ["Detector", "NETWORKS"]
 
-# architecture -> the NMS overlap its published postprocess uses
-ARCHITECTURES = {"vgg16": "diou", "resnet50": "iou"}
+# architecture -> its network class; the stem kernel, the int8 walk, the
+# weights exports and the train step are SSD300's alone
+NETWORKS = {"vgg16": SSD300, "resnet50": SSD300ResNet50}
 
 
 class Detector:
@@ -64,13 +66,13 @@ class Detector:
     ``device`` defaults to the mesh's device, or without a mesh to ``cuda``.
     ``width_mult`` narrows every backbone layer, for tests.
 
-    ``architecture`` is "vgg16" or "resnet50" (:data:`ARCHITECTURES`); the
+    ``architecture`` is "vgg16" or "resnet50" (:data:`NETWORKS`); the
     ResNet-50 network takes ``variables`` in the layout of
     :func:`ssdx_torch.model_resnet.init_variables`, has no stem kernel and
     no int8 path, and uses NVIDIA's default boxes
     (:func:`ssdx_torch.priors.create_priors_coco`).  ``nms_kind`` is the
-    overlap its published postprocess suppresses by ("diou" or "iou"), what
-    ``predict_batched`` uses unless the call names another.
+    overlap the network's published postprocess suppresses by ("diou" or
+    "iou"), what ``predict_batched`` uses unless the call names another.
 
     ``mesh`` (:mod:`ssdx_torch.mesh`): data-parallel inference.  Every rank
     calls ``forward`` with the same whole batch, runs its shard through the
@@ -93,14 +95,15 @@ class Detector:
         mesh=None,
         architecture: str = "vgg16",
     ):
-        if architecture not in ARCHITECTURES:
-            raise ValueError(f"architecture must be one of {sorted(ARCHITECTURES)}, "
+        if architecture not in NETWORKS:
+            raise ValueError(f"architecture must be one of {sorted(NETWORKS)}, "
                              f"got {architecture!r}")
-        if stem_kernel and architecture != "vgg16":
+        net = NETWORKS[architecture]
+        if stem_kernel and net is not SSD300:
             raise ValueError("the stem kernel computes VGG16's conv1_1 + conv1_2 + pool; "
                              f"the {architecture} network has no such stem")
         self.architecture = architecture
-        self.nms_kind = ARCHITECTURES[architecture]
+        self.nms_kind = net.nms_kind
         self.mesh = mesh
         self.device = resolve_device(mesh.device if device is None and mesh is not None
                                      else device)
@@ -113,37 +116,20 @@ class Detector:
         self.width_mult = width_mult
         self.img_h = self.img_w = IMAGE_SIZE
 
-        resnet = architecture == "resnet50"
         if variables is None:
-            init = model_resnet.init_variables if resnet else init_variables
-            variables = init(self.num_classes, rng_seed, width_mult)
+            variables = net.init_variables(self.num_classes, rng_seed, width_mult)
         if fold_bn and "batch_stats" in variables:
             variables = fold_batchnorm(variables)
         self.variables = variables
 
         self.stem_kernel = bool(stem_kernel and fold_bn)
-        if resnet:
-            self.model = model_resnet.SSD300ResNet50(self.num_classes, fold_bn=fold_bn,
-                                                     width_mult=width_mult, dtype=dtype)
-            sd = model_resnet.state_dict_from_tree(variables, self.num_classes)
-        else:
-            self.model = SSD300(self.num_classes, fold_bn=fold_bn,
-                                stem_input=self.stem_kernel, width_mult=width_mult,
-                                dtype=dtype)
-            sd = state_dict_from_jax(variables, fold_bn)
-        self.model.load_state_dict(sd)
+        stem = {"stem_input": True} if self.stem_kernel else {}
+        self.model = net(self.num_classes, fold_bn=fold_bn, width_mult=width_mult, dtype=dtype,
+                         **stem)
+        self.model.load_state_dict(state_dict_from_jax(variables, fold_bn))
         self.model.requires_grad_(False).eval()
         self.model.to(self.device, memory_format=torch.channels_last)
-        if resnet and fold_bn:
-            # folded, the network holds conv weights and biases alone: keep them in
-            # the dtype the convs read, so no forward casts them again
-            self.model.to(dtype)
-        # what _stage casts host input to (None: the input's own dtype)
-        self._stage_dtype = (torch.bfloat16 if self.stem_kernel
-                             or (resnet and dtype == torch.bfloat16) else None)
-
-        priors = P.create_priors_coco() if resnet else P.create_priors()
-        self.priors = torch.as_tensor(priors, device=self.device)
+        self.priors = torch.as_tensor(net.create_priors(), device=self.device)
         self.quant_params: quant.QuantizedSSD | None = None
         self._int8_forward = None
 
@@ -155,7 +141,7 @@ class Detector:
         Other architectures raise ``ValueError``: pass their tree as
         ``variables``."""
         arch = kwargs.get("architecture", "vgg16")
-        if arch != "vgg16":
+        if NETWORKS.get(arch) is not SSD300:
             raise ValueError(f"from_weights loads the vgg16 network's exports; for {arch!r} "
                              "pass the weights tree as Detector(..., variables=...)")
         blob = load_params(path)
@@ -169,7 +155,7 @@ class Detector:
         its float forward: quantize again on the new weights.  The train
         step trains the vgg16 network; other architectures raise
         ``ValueError``."""
-        if self.architecture != "vgg16":
+        if not isinstance(self.model, SSD300):
             raise ValueError(f"load_train_state takes the vgg16 network's state; this "
                              f"detector is {self.architecture!r}")
         variables = variables_from_torch(state.model)
@@ -208,7 +194,7 @@ class Detector:
         The int8 walk is the vgg16 network's: other architectures raise
         ``ValueError``.
         """
-        if self.architecture != "vgg16":
+        if not isinstance(self.model, SSD300):
             raise ValueError(f"int8 quantization serves the vgg16 network; this detector is "
                              f"{self.architecture!r}")
         if not self.fold_bn:
@@ -241,10 +227,9 @@ class Detector:
         :meth:`quantize_int8` has run, the post-stem backbone is int8.
 
         On a CUDA device, host images (a numpy array or a CPU tensor) are
-        staged in pinned memory (:meth:`_stage`): cast on the host to
-        bfloat16 when the stem kernel runs, or the ResNet-50 network runs
-        in bfloat16 (rounding to nearest even, as the card would; the
-        network's own cast is then a no-op), copied as they are otherwise.
+        staged in pinned memory (:meth:`_stage`), cast on the host to the
+        detector's dtype (rounding to nearest even, as the card would; the
+        network's own cast is then a no-op).
         A CUDA tensor, or a CPU detector, is taken by
         ``torch.as_tensor(images, device=...)``.  The span
         ``ssdx_torch.api.input_copy`` counts the caller's ``input_bytes``
@@ -274,15 +259,14 @@ class Detector:
         return loc[:b], conf[:b]
 
     def _stage(self, host: torch.Tensor) -> torch.Tensor:
-        """``host`` on the card through a pinned buffer, in bfloat16 when the
-        network's first op reads bfloat16 (``_stage_dtype``).  The caching
+        """``host`` on the card through a pinned buffer, in the detector's
+        dtype, which every first op on the input casts to.  The caching
         host allocator records the DMA's event on the buffer and hands it
         out again only once the DMA is done, so concurrent callers never
         share one.  Returns when the copy
         has landed, as the pageable copy did: the caller's array is free
         again and the input-copy span covers the DMA."""
-        dtype = self._stage_dtype or host.dtype
-        pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True).copy_(host)
+        pinned = torch.empty(host.shape, dtype=self.dtype, pin_memory=True).copy_(host)
         x = pinned.to(self.device, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return x

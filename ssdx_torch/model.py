@@ -30,9 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .mesh import all_reduce_sum
-from .priors import BOXES_PER_LOCATION, NUM_PRIORS
+from .priors import BOXES_PER_LOCATION, NUM_PRIORS, create_priors
 
-__all__ = ["SSD300", "IMAGE_SIZE", "BACKBONE", "init_variables", "update_running_stats"]
+__all__ = ["SSD300", "Heads", "multibox", "IMAGE_SIZE", "BACKBONE", "init_variables", "update_running_stats"]
 
 IMAGE_SIZE = 300
 
@@ -122,68 +122,36 @@ class ConvBNRelu(nn.Module):
         return F.relu(y)
 
 
-class SSD300(nn.Module):
-    """SSD300 with a VGG16+BN backbone.
+class Heads(nn.ModuleList):
+    """The multibox heads of either network: one fused 3x3 conv per tap
+    (``heads.i``) whose output channels are ``[k*4 box | k*C cls]``.
+    ``forward(taps)`` takes the NCHW taps and returns (loc [B,P,4], cls
+    [B,P,C]) in float32 (:func:`multibox`)."""
 
-    ``fold_bn=True`` builds the BN-free serving variant whose weights come
-    from :func:`ssdx_torch.export.fold_batchnorm`.  ``stem_input=True``
-    makes ``forward`` take the post-stem map ``[B,150,150,64]`` (computed by
-    :func:`ssdx_torch.ops.stem.stem_conv_pool`) and skip conv1_1, conv1_2
-    and the first pool; their weights stay in the module, which the stem
-    kernel reads.  ``width_mult`` scales every backbone channel count
-    (rounded to a multiple of 8, at least 8) for fast tests; the reference
-    architecture is ``width_mult=1.0``.
-    """
-
-    def __init__(self, num_classes: int, fold_bn: bool = False,
-                 stem_input: bool = False, width_mult: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
+    def __init__(self, tap_channels, num_classes: int):
+        super().__init__(nn.Conv2d(c, k * (4 + num_classes), 3, padding=1)
+                         for c, k in zip(tap_channels, BOXES_PER_LOCATION))
         self.num_classes = num_classes
-        self.fold_bn = fold_bn
-        self.stem_input = stem_input
-        self.width_mult = width_mult
-        self.dtype = dtype
-        chans = backbone_channels(width_mult)
-        self.layers = nn.ModuleList(
-            ConvBNRelu(cin, cout, k, s, p, d, bn and not fold_bn)
-            for (cin, cout), (_, k, s, p, d, bn) in zip(chans, BACKBONE)
-        )
-        self.heads = nn.ModuleList(
-            nn.Conv2d(chans[t][1], k * (4 + num_classes), 3, padding=1)
-            for t, k in zip(_TAPS, BOXES_PER_LOCATION)
-        )
 
-    def forward(self, x: torch.Tensor, train: bool = False, stem_input: bool | None = None,
-                mesh=None):
-        """``train=True`` runs BatchNorm on batch statistics and updates the
-        running ones; with a ``mesh`` (:mod:`ssdx_torch.mesh`) ``x`` is this
-        rank's shard and the statistics are the global batch's.
-        ``stem_input`` overrides the module's own setting for this call: the
-        train step's fused route hands the pooled stem map of
-        :func:`ssdx_torch.ops.stem_train.stem_train` to the full model."""
-        if stem_input is None:
-            stem_input = self.stem_input
-        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        taps = []
-        for i in range(_STEM_LAYERS if stem_input else 0, len(self.layers)):
-            x = self.layers[i](x, train, mesh)
-            if i in _TAPS:
-                taps.append(x)
-            if i in _POOL_AFTER:
-                x = F.max_pool2d(x, 2, 2, ceil_mode=_POOL_AFTER[i])
+    def forward(self, taps: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        return multibox(taps, [(h.weight, h.bias) for h in self], self.num_classes)
 
-        B, C = x.shape[0], self.num_classes
-        locs, clss = [], []
-        for t, k, head in zip(taps, BOXES_PER_LOCATION, self.heads):
-            y = F.conv2d(t, head.weight.to(t.dtype), head.bias.to(t.dtype), padding=1)
-            y = y.permute(0, 2, 3, 1)  # (H, W, k) order, as the priors
-            locs.append(y[..., : k * 4].reshape(B, -1, 4))
-            clss.append(y[..., k * 4 :].reshape(B, -1, C))
-        loc = torch.cat(locs, dim=1).float()
-        cls = torch.cat(clss, dim=1).float()
-        assert loc.shape[1] == NUM_PRIORS, loc.shape
-        return loc, cls
+
+def multibox(taps, convs, num_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused head convs (``convs``: (weight, bias) per tap, cast to the
+    tap's dtype) on the NCHW ``taps``, flattened in (H, W, k) order to match
+    the priors: (loc [B,P,4], cls [B,P,C]) in float32."""
+    B, C = taps[0].shape[0], num_classes
+    locs, clss = [], []
+    for t, k, (w, b) in zip(taps, BOXES_PER_LOCATION, convs):
+        y = F.conv2d(t, w.to(t.dtype), b.to(t.dtype), padding=1)
+        y = y.permute(0, 2, 3, 1)  # (H, W, k) order, as the priors
+        locs.append(y[..., : k * 4].reshape(B, -1, 4))
+        clss.append(y[..., k * 4 :].reshape(B, -1, C))
+    loc = torch.cat(locs, dim=1).float()
+    cls = torch.cat(clss, dim=1).float()
+    assert loc.shape[1] == NUM_PRIORS, loc.shape
+    return loc, cls
 
 
 def init_variables(num_classes: int, seed: int = 0, width_mult: float = 1.0) -> dict:
@@ -220,3 +188,62 @@ def init_variables(num_classes: int, seed: int = 0, width_mult: float = 1.0) -> 
             params[f"{name}_head_{i}"] = {"kernel": kernel(3, cin, f),
                                          "bias": np.zeros(f, np.float32)}
     return {"params": params, "batch_stats": stats}
+
+
+class SSD300(nn.Module):
+    """SSD300 with a VGG16+BN backbone.
+
+    ``fold_bn=True`` builds the BN-free serving variant whose weights come
+    from :func:`ssdx_torch.export.fold_batchnorm`.  ``stem_input=True``
+    makes ``forward`` take the post-stem map ``[B,150,150,64]`` (computed by
+    :func:`ssdx_torch.ops.stem.stem_conv_pool`) and skip conv1_1, conv1_2
+    and the first pool; their weights stay in the module, which the stem
+    kernel reads.  ``width_mult`` scales every backbone channel count
+    (rounded to a multiple of 8, at least 8) for fast tests; the reference
+    architecture is ``width_mult=1.0``.
+
+    What ``Detector`` reads of the class: ``init_variables`` (a random
+    tree), ``create_priors`` and ``nms_kind`` (DIoU, the JAX package's
+    postprocess).  Its weights stay float32 in every dtype: the stem kernel
+    reads conv1_2's bias in float32.
+    """
+
+    init_variables = staticmethod(init_variables)
+    create_priors = staticmethod(create_priors)
+    nms_kind = "diou"
+
+    def __init__(self, num_classes: int, fold_bn: bool = False,
+                 stem_input: bool = False, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fold_bn = fold_bn
+        self.stem_input = stem_input
+        self.width_mult = width_mult
+        self.dtype = dtype
+        chans = backbone_channels(width_mult)
+        self.layers = nn.ModuleList(
+            ConvBNRelu(cin, cout, k, s, p, d, bn and not fold_bn)
+            for (cin, cout), (_, k, s, p, d, bn) in zip(chans, BACKBONE)
+        )
+        self.heads = Heads([chans[t][1] for t in _TAPS], num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False, stem_input: bool | None = None,
+                mesh=None):
+        """``train=True`` runs BatchNorm on batch statistics and updates the
+        running ones; with a ``mesh`` (:mod:`ssdx_torch.mesh`) ``x`` is this
+        rank's shard and the statistics are the global batch's.
+        ``stem_input`` overrides the module's own setting for this call: the
+        train step's fused route hands the pooled stem map of
+        :func:`ssdx_torch.ops.stem_train.stem_train` to the full model."""
+        if stem_input is None:
+            stem_input = self.stem_input
+        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
+        taps = []
+        for i in range(_STEM_LAYERS if stem_input else 0, len(self.layers)):
+            x = self.layers[i](x, train, mesh)
+            if i in _TAPS:
+                taps.append(x)
+            if i in _POOL_AFTER:
+                x = F.max_pool2d(x, 2, 2, ceil_mode=_POOL_AFTER[i])
+        return self.heads(taps)

@@ -19,6 +19,7 @@ its folded BatchNorm).
   heads   per tap one fused 3x3 conv (bias) of [k*4 box | k*C cls] channels,
           flattened in (H, W, k) order as the priors of
           :func:`ssdx_torch.priors.create_priors_coco`
+          (:class:`ssdx_torch.model.Heads`, VGG16's too)
 
 A bottleneck (torchvision v1.5, the stride on its 3x3) computes
 ``relu(branch(x) + shortcut(x))`` with ``branch = bn3(conv3(relu(bn2(conv2(
@@ -31,7 +32,8 @@ Weights are a ``{'params', 'batch_stats'}`` tree keyed by each conv's module
 path (``trunk.layer3.0.downsample``, ``extras.2.1``, ``box_head_0``, ...):
 ``Conv_0/kernel`` HWIO (and ``Conv_0/bias`` once folded), ``BatchNorm_0/
 {scale, bias}`` and ``batch_stats/<path>/BatchNorm_0/{mean, var}``, the
-layout :func:`ssdx_torch.export.fold_batchnorm` folds.
+layout :func:`ssdx_torch.export.fold_batchnorm` folds and
+:func:`ssdx_torch.weights.state_dict_from_jax` loads.
 """
 from __future__ import annotations
 
@@ -42,11 +44,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .priors import BOXES_PER_LOCATION, NUM_PRIORS
+from .model import Heads, _width
+from .priors import BOXES_PER_LOCATION, create_priors_coco
 from .utils.profiling import span
 
-__all__ = ["SSD300ResNet50", "TRUNK_STAGES", "EXTRAS", "init_variables",
-           "state_dict_from_tree", "conv_paths"]
+__all__ = ["SSD300ResNet50", "TRUNK_STAGES", "EXTRAS", "init_variables", "conv_paths"]
 
 # (blocks, mid width, out width, first stride) of layer1..layer3; layer3's
 # first block keeps stride 1, so the first tap is 38x38.
@@ -56,10 +58,6 @@ STEM_WIDTH = 64
 EXTRAS = ((256, 512, 2, 1), (256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0),
           (128, 256, 1, 0))
 BN_EPS = 1e-5
-
-
-def _width(f: int, width_mult: float) -> int:
-    return max(8, int(f * width_mult) // 8 * 8)
 
 
 class ConvBN(nn.Module):
@@ -144,58 +142,6 @@ class Extras(nn.ModuleList):
         return taps
 
 
-class Heads(nn.Module):
-    """One fused conv per tap: ``[k*4 box | k*C cls]`` channels, flattened
-    in (H, W, k) order; returns (loc [B,P,4], cls [B,P,C]) in float32."""
-
-    def __init__(self, tap_channels, num_classes: int):
-        super().__init__()
-        self.num_classes = num_classes
-        self.convs = nn.ModuleList(nn.Conv2d(c, k * (4 + num_classes), 3, padding=1)
-                                   for c, k in zip(tap_channels, BOXES_PER_LOCATION))
-
-    def forward(self, taps: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
-        B, C = taps[0].shape[0], self.num_classes
-        locs, clss = [], []
-        for t, k, head in zip(taps, BOXES_PER_LOCATION, self.convs):
-            y = F.conv2d(t, head.weight.to(t.dtype), head.bias.to(t.dtype), padding=1)
-            y = y.permute(0, 2, 3, 1)
-            locs.append(y[..., : k * 4].reshape(B, -1, 4))
-            clss.append(y[..., k * 4 :].reshape(B, -1, C))
-        return torch.cat(locs, dim=1).float(), torch.cat(clss, dim=1).float()
-
-
-class SSD300ResNet50(nn.Module):
-    """NVIDIA's SSD300 v1.1 for inference (BatchNorm on running statistics).
-
-    ``fold_bn=True`` builds the BN-free serving variant whose weights come
-    from :func:`ssdx_torch.export.fold_batchnorm`; ``width_mult`` thins
-    every width (rounded to a multiple of 8, at least 8) for tests.
-    """
-
-    def __init__(self, num_classes: int, fold_bn: bool = False, width_mult: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.num_classes = num_classes
-        self.fold_bn = fold_bn
-        self.width_mult = width_mult
-        self.dtype = dtype
-        self.trunk = Trunk(width_mult, fold_bn)
-        self.extras = Extras(self.trunk.out_channels, width_mult, fold_bn)
-        self.heads = Heads([self.trunk.out_channels] + self.extras.channels, num_classes)
-
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        with span("ssdx_torch.model.trunk"):
-            x = self.trunk(x)
-        with span("ssdx_torch.model.extras"):
-            taps = self.extras(x)
-        with span("ssdx_torch.model.heads"):
-            loc, cls = self.heads(taps)
-        assert loc.shape[1] == NUM_PRIORS, loc.shape
-        return loc, cls
-
-
 def conv_paths(width_mult: float = 1.0,
                num_classes: int = 81) -> list[tuple[str, int, int, int, bool]]:
     """(tree key, cin, cout, kernel, batchnorm) of every conv, in forward
@@ -207,7 +153,7 @@ def conv_paths(width_mult: float = 1.0,
         if isinstance(mod, ConvBN):
             c = mod.conv
             out.append((name, c.in_channels, c.out_channels, c.kernel_size[0], True))
-    for i, (head, k) in enumerate(zip(m.heads.convs, BOXES_PER_LOCATION)):
+    for i, (head, k) in enumerate(zip(m.heads, BOXES_PER_LOCATION)):
         out.append((f"box_head_{i}", head.in_channels, k * 4, 3, False))
         out.append((f"cls_head_{i}", head.in_channels, k * num_classes, 3, False))
     return out
@@ -242,35 +188,43 @@ def init_variables(num_classes: int, seed: int = 0, width_mult: float = 1.0) -> 
     return {"params": params, "batch_stats": stats}
 
 
-def _t(a) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+class SSD300ResNet50(nn.Module):
+    """NVIDIA's SSD300 v1.1 for inference (BatchNorm on running statistics).
 
+    ``fold_bn=True`` builds the BN-free serving variant whose weights come
+    from :func:`ssdx_torch.export.fold_batchnorm`; ``width_mult`` thins
+    every width (rounded to a multiple of 8, at least 8) for tests.
+    Folded, the network holds conv weights and biases alone, and holds them
+    in ``dtype``, the dtype the convs read, so no forward casts them again;
+    loading float32 weights into it rounds them as ``.to(dtype)`` does.
 
-def state_dict_from_tree(variables: dict, num_classes: int) -> dict[str, torch.Tensor]:
-    """The tree (folded or not) as :class:`SSD300ResNet50`'s state dict:
-    HWIO -> OIHW; ``box_head_i`` + ``cls_head_i`` -> the fused
-    ``heads.convs.i``, box channels first.  Folded modules carry
-    ``Conv_0/bias`` and no ``BatchNorm_0``."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    oihw = lambda k: _t(k).permute(3, 2, 0, 1).contiguous()
-    sd = {}
-    n_heads = 0
-    for name, mod in params.items():
-        if name.startswith(("box_head_", "cls_head_")):
-            n_heads = max(n_heads, int(name.rsplit("_", 1)[1]) + 1)
-            continue
-        sd[f"{name}.conv.weight"] = oihw(mod["Conv_0"]["kernel"])
-        if "bias" in mod["Conv_0"]:
-            sd[f"{name}.conv.bias"] = _t(mod["Conv_0"]["bias"])
-        if "BatchNorm_0" in mod:
-            bn, st = mod["BatchNorm_0"], stats[name]["BatchNorm_0"]
-            sd[f"{name}.bn.weight"] = _t(bn["scale"])
-            sd[f"{name}.bn.bias"] = _t(bn["bias"])
-            sd[f"{name}.bn.running_mean"] = _t(st["mean"])
-            sd[f"{name}.bn.running_var"] = _t(st["var"])
-            sd[f"{name}.bn.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-    for i in range(n_heads):
-        box, cls = params[f"box_head_{i}"], params[f"cls_head_{i}"]
-        sd[f"heads.convs.{i}.weight"] = torch.cat([oihw(box["kernel"]), oihw(cls["kernel"])])
-        sd[f"heads.convs.{i}.bias"] = torch.cat([_t(box["bias"]), _t(cls["bias"])])
-    return sd
+    What ``Detector`` reads of the class: ``init_variables`` (a random
+    tree), ``create_priors`` (NVIDIA's default boxes) and ``nms_kind`` (the
+    IoU-NMS of NVIDIA's postprocess).
+    """
+
+    init_variables = staticmethod(init_variables)
+    create_priors = staticmethod(create_priors_coco)
+    nms_kind = "iou"
+
+    def __init__(self, num_classes: int, fold_bn: bool = False, width_mult: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fold_bn = fold_bn
+        self.width_mult = width_mult
+        self.dtype = dtype
+        self.trunk = Trunk(width_mult, fold_bn)
+        self.extras = Extras(self.trunk.out_channels, width_mult, fold_bn)
+        self.heads = Heads([self.trunk.out_channels] + self.extras.channels, num_classes)
+        if fold_bn:
+            self.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
+        with span("ssdx_torch.model.trunk"):
+            x = self.trunk(x)
+        with span("ssdx_torch.model.extras"):
+            taps = self.extras(x)
+        with span("ssdx_torch.model.heads"):
+            return self.heads(taps)

@@ -380,7 +380,7 @@ def apply_int8_kernels(qp, feats: torch.Tensor, head_dtype=torch.bfloat16):
             xq = int8_conv(xq, ql.kernel_q, ql.w_scale, ql.bias, next_scale, emit="int8", **kw)
         if spec.pool:
             xq = quant._max_pool(xq, ceil=spec.pool == "ceil")
-    return quant.run_heads(qp, taps, head_dtype)
+    return quant.run_heads(qp, taps)
 
 
 # ------------------------------------------------------------ bare matmuls

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .model import _POOL_AFTER, _STEM_LAYERS, _TAPS, BACKBONE
-from .priors import BOXES_PER_LOCATION, NUM_PRIORS
+from .model import _POOL_AFTER, _STEM_LAYERS, _TAPS, BACKBONE, multibox
+from .weights import _fused_heads, _oihw, _t
 
 __all__ = [
     "QuantLayer",
@@ -108,12 +108,6 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _oihw(kernel, device=None) -> torch.Tensor:
-    """HWIO numpy kernel -> float32 tensor viewed as OIHW."""
-    w = torch.as_tensor(np.asarray(kernel), dtype=torch.float32, device=device)
-    return w.permute(3, 2, 0, 1)
-
-
 def _max_pool(x: torch.Tensor, ceil: bool) -> torch.Tensor:
     """2x2/2 max pool of an NHWC tensor of any dtype, int8 included.
 
@@ -154,8 +148,7 @@ def stem_bf16(params: dict, images: torch.Tensor, dtype=torch.bfloat16) -> torch
     spec = _L("stem", 3, 1, 1, 1, None, None)
     for name in ("ConvBNRelu_0", "ConvBNRelu_1"):
         c = params[name]["Conv_0"]
-        bias = torch.as_tensor(np.asarray(c["bias"]), dtype=torch.float32, device=dev)
-        x = F.relu(_conv(x, _oihw(c["kernel"], dev), bias, spec, dtype))
+        x = F.relu(_conv(x, _oihw(c["kernel"], dev), _t(c["bias"], dev), spec, dtype))
     return _max_pool(x, ceil=False)
 
 
@@ -178,8 +171,7 @@ def calibrate_act_scales(params: dict, feats: torch.Tensor, dtype=torch.bfloat16
     for spec in _TOPOLOGY:
         amaxes[spec.name] = x.abs().amax(dim=(0, 1, 2)).float().cpu().numpy()
         c = params[spec.name]["Conv_0"]
-        bias = torch.as_tensor(np.asarray(c["bias"]), dtype=torch.float32, device=dev)
-        x = F.relu(_conv(x, _oihw(c["kernel"], dev), bias, spec, dtype))
+        x = F.relu(_conv(x, _oihw(c["kernel"], dev), _t(c["bias"], dev), spec, dtype))
         if spec.pool:
             x = _max_pool(x, ceil=spec.pool == "ceil")
     return amaxes
@@ -198,12 +190,11 @@ def quantize_ssd(params: dict, act_scales: dict, num_classes: int,
     and the result is moved to ``device``.
     """
     dev = torch.device(device)
-    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
     layers = {}
     for spec in _TOPOLOGY:
         c = params[spec.name]["Conv_0"]
         w = _oihw(c["kernel"])
-        in_scale = torch.clamp(f32(act_scales[spec.name]), min=1e-12) / _I8_MAX
+        in_scale = torch.clamp(_t(act_scales[spec.name]), min=1e-12) / _I8_MAX
         wf = w * in_scale[None, :, None, None]  # fold act scales into weights
         w_amax = torch.clamp(wf.abs().amax(dim=(1, 2, 3)), min=1e-30)
         w_scale = w_amax / _I8_MAX
@@ -211,19 +202,12 @@ def quantize_ssd(params: dict, act_scales: dict, num_classes: int,
                                _I8_MIN, _I8_MAX).to(torch.int8)
         layers[spec.name] = QuantLayer(
             kernel_q=kernel_q.to(dev).contiguous(memory_format=torch.channels_last),
-            bias=f32(c["bias"]).to(dev),
+            bias=_t(c["bias"], dev),
             in_scale=in_scale.to(dev),
             w_scale=w_scale.to(dev),
         )
-    heads = []
-    for i in range(len(_TAPS)):
-        box, cls = params[f"box_head_{i}"], params[f"cls_head_{i}"]
-        kernel = np.concatenate([np.asarray(box["kernel"]), np.asarray(cls["kernel"])], -1)
-        bias = np.concatenate([np.asarray(box["bias"]), np.asarray(cls["bias"])])
-        heads.append({
-            "weight": _oihw(kernel).to(dev).contiguous(memory_format=torch.channels_last),
-            "bias": f32(bias).to(dev),
-        })
+    heads = [{"weight": weight.to(dev).contiguous(memory_format=torch.channels_last),
+              "bias": bias.to(dev)} for weight, bias in _fused_heads(params)]
     return QuantizedSSD(layers=layers, heads=heads, num_classes=num_classes)
 
 
@@ -248,21 +232,12 @@ def conv_int_exact(xq: torch.Tensor, kernel_q: torch.Tensor, spec: _L) -> torch.
     return _nhwc(y)
 
 
-def run_heads(qp: QuantizedSSD, taps: list, head_dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused multibox heads on the six NHWC taps, flattened in
-    (H, W, k) order: ``(loc [B,8732,4], cls [B,8732,C])`` float32."""
-    B, C = taps[0].shape[0], qp.num_classes
-    locs, clss = [], []
-    for t, k, head in zip(taps, BOXES_PER_LOCATION, qp.heads):
-        y = F.conv2d(_nchw(t), head["weight"].to(head_dtype), head["bias"].to(head_dtype),
-                     padding=1)
-        y = _nhwc(y)
-        locs.append(y[..., : k * 4].reshape(B, -1, 4))
-        clss.append(y[..., k * 4:].reshape(B, -1, C))
-    loc = torch.cat(locs, dim=1).float()
-    cls = torch.cat(clss, dim=1).float()
-    assert loc.shape[1] == NUM_PRIORS, loc.shape
-    return loc, cls
+def run_heads(qp: QuantizedSSD, taps: list) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused multibox heads on the six NHWC taps, in the taps' dtype
+    (:func:`ssdx_torch.model.multibox`): ``(loc [B,8732,4], cls [B,8732,C])``
+    float32."""
+    return multibox([_nchw(t) for t in taps], [(h["weight"], h["bias"]) for h in qp.heads],
+                    qp.num_classes)
 
 
 @torch.inference_mode()
@@ -311,7 +286,7 @@ def apply_int8(qp: QuantizedSSD, feats: torch.Tensor, head_dtype=torch.bfloat16,
             xq = _quantize_act(y, qp.layers[nxt.name].in_scale)
             if spec.pool:
                 xq = _max_pool(xq, ceil=spec.pool == "ceil")
-    return run_heads(qp, taps, head_dtype)
+    return run_heads(qp, taps)
 
 
 # ----------------------------------------------------------------- validation

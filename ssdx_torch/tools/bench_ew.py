@@ -30,8 +30,8 @@ import torch
 
 from ssdx_torch.ops import repro
 from ssdx_torch.tools.bench_int8_mm import cuda_ms, device_time, device_times
+from ssdx_torch.tools.roofline import PEAK_BYTES
 
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 EW_ATOL = 1e-6  # tanhf against PyTorch's tanh need not agree in the last bit
 SIZES = {"[256,256]": (256, 256), "2^22": (1 << 22,), "2^26": (1 << 26,)}
 SMALL = "[256,256]"

@@ -36,10 +36,8 @@ import time
 import torch
 
 from ssdx_torch.ops import int8_conv as ic
+from ssdx_torch.tools.roofline import PEAK_INT8, bound_ms
 
-PEAK_INT8 = 1979e12  # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 BF16_RTOL = 1e-3  # bf16 kernel against float32 matmul: max |k - r| / (|r| + 1)
 
 
@@ -222,8 +220,8 @@ def run(size: int = 2048, iters: int = 50, log=print) -> dict:
         "torch_bf16f32_device_ms": device_ms(mm_f32, libbf),
         "kernel_host_ms": host_ms(ic.int8_mm_raw, small),
         "torch_host_ms": host_ms(torch._int_mm, [(a, b.t()) for a, b in small]),
-        "bound_int8_ms": max(flops / PEAK_INT8, (2 * size * size + 4 * size * size) / PEAK_BYTES) * 1e3,
-        "bound_bf16_ms": max(flops / PEAK_BF16, (4 * size * size + 4 * size * size) / PEAK_BYTES) * 1e3,
+        "bound_int8_ms": bound_ms(flops, 2 * size * size + 4 * size * size, PEAK_INT8)[0],
+        "bound_bf16_ms": bound_ms(flops, 4 * size * size + 4 * size * size)[0],
     }
     for name, key, unit in (("kernel-int8", "kernel_int8", "TOP/s"),
                             ("kernel-bf16", "kernel_bf16", "TFLOP/s"),

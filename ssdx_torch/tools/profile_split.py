@@ -35,9 +35,8 @@ from ssdx_torch.ops import bn_relu_pool as brp_ops
 from ssdx_torch.ops import nms as nms_ops
 from ssdx_torch.tools.check_brp import BRP_CASES, brp_inputs
 from ssdx_torch.tools.check_nms import nms_inputs
+from ssdx_torch.tools.roofline import PEAK_BYTES, PEAK_F32, bound_ms
 
-PEAK_F32 = 67e12   # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12
 NMS_OPS_PER_PAIR = 31  # float32 operations of one DIoU + compare
 IOU_OPS_PER_PAIR = 14  # of one IoU + compare
 WINDOW_PAD_S = 0.025   # idle seconds at each end of a window (tools/bench_int8_mm.py)
@@ -61,12 +60,11 @@ def nms_bound(valid, labels=None) -> tuple[float, str]:
     n_valid = valid.sum(dim=1).tolist()
     pairs = sum(n * (K - 1) - n * (n - 1) // 2 for n in n_valid)
     if labels is None:
-        t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_F32
+        ops = pairs * NMS_OPS_PER_PAIR
     else:
         same = (labels[:, :, None] == labels[:, None, :]).triu(1) & valid[:, :, None]
-        t_ops = (pairs + int(same.sum()) * IOU_OPS_PER_PAIR) / PEAK_F32
-    t_bytes = (B * K * (16 + 1) + B * K) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+        ops = pairs + int(same.sum()) * IOU_OPS_PER_PAIR
+    return bound_ms(ops, B * K * (16 + 1) + B * K, PEAK_F32)
 
 
 def brp_bounds(shape, ceil, itemsize=2) -> dict:

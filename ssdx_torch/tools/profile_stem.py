@@ -1,8 +1,7 @@
 """Where the device time of the two stem kernels goes, on one GPU.
 
     python -m ssdx_torch.tools.profile_stem [--b3-batch 16] [--b2-batch 32]
-                                            [--windows 1] [--split-source PATH]
-                                            [--b3-cuts]
+                                            [--windows 1] [--b3-cuts]
 
 B3 (``ops.stem_train``, ``csrc/stem_train.cu``): forwards + backwards at
 ``--b3-batch`` under ``torch.profiler``, over distinct inputs, and the
@@ -21,13 +20,7 @@ dw1 without its fetch, conv1_stats without its y1 stores or its epilogue)
 and times each in B3's split: where each launch's time goes.
 
 B2 (``ops.stem``, ``csrc/stem.cu``): the kernel at ``--b2-batch`` by CUDA
-events and by profiler device time.  With ``--split-source`` (a ``stem.cu``
-of the earlier WMMA design, for example from a ``git archive`` of an older
-commit) it also builds that source three ways and times each variant by
-CUDA events and by device time: whole; conv1_1 alone (staging + conv1_1
-into the y1 tile, nothing after); and conv1_2 with the epilogue on a y1
-tile left as it is in shared memory (staging, no conv1_1).  The variants cut the source
-at its section comments (:data:`SPLIT_MARKERS`).
+events and by profiler device time.
 
 Prints the card (nvidia-smi name and power limit) first.  Needs a CUDA
 device.
@@ -50,9 +43,8 @@ from ssdx_torch.ops import _build
 from ssdx_torch.ops import stem as stem_ops
 from ssdx_torch.ops import stem_train as stem_train_ops
 from ssdx_torch.tools.bench_int8_mm import WINDOW_PAD_S, cuda_ms, device_ms, fmt
+from ssdx_torch.tools.roofline import bound_ms
 
-PEAK_BF16 = 989e12  # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12
 H, C = 300, 64
 
 
@@ -63,19 +55,14 @@ def b3_bounds(B: int) -> dict:
     pooled = act // 4
     img = P * 3 * 2
     k27, k576 = 2 * P * C * 27, 2 * P * C * 576
-
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
-        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
-
     return {
-        "conv1_stats": bound(k27, img + act),
-        "stage2<0>": bound(k576, 2 * act),
-        "pool": bound(0, act + pooled),
-        "route": bound(0, 2 * act + pooled),
-        "stage2<1>": bound(k576, 4 * act),
-        "dw2": bound(k576, 3 * act),
-        "dw1": bound(k27, img + 2 * act),
+        "conv1_stats": bound_ms(k27, img + act),
+        "stage2<0>": bound_ms(k576, 2 * act),
+        "pool": bound_ms(0, act + pooled),
+        "route": bound_ms(0, 2 * act + pooled),
+        "stage2<1>": bound_ms(k576, 4 * act),
+        "dw2": bound_ms(k576, 3 * act),
+        "dw1": bound_ms(k27, img + 2 * act),
     }
 
 
@@ -289,28 +276,6 @@ def b3_cuts(B: int = 16, log=print) -> dict:
     return res
 
 
-# --------------------------------------------------- variants of the old B2
-
-# Section comments of the WMMA stem.cu at which the variants cut it.
-SPLIT_MARKERS = ("  // ---- conv1_1 + ReLU -> y1 tile", "  // ---- conv1_2: implicit GEMM",
-                 "\n}\n\n}  // namespace")
-# Keeps the y1 tile observable when nothing after conv1_1 reads it.
-_SINK = ("  if (tid == 0 && __bfloat162float(y1s[blockIdx.x]) == 1234.5f)"
-         " out[blockIdx.x] = y1s[1];\n")
-
-
-def split_variants(text: str) -> dict[str, str]:
-    """The whole kernel, conv1_1 alone, and conv1_2 + epilogue alone."""
-    a, b, c = (text.index(m) for m in SPLIT_MARKERS)
-    if not a < b < c:
-        raise ValueError("the source's sections are not in the expected order")
-    return {
-        "whole": text,
-        "conv1_1": text[:b] + _SINK + text[c:],
-        "conv1_2+epilogue": text[:a] + text[b:],
-    }
-
-
 def _build_variant(name: str, text: str) -> Path:
     out_dir = _build.BUILD_DIR / "stem_split"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -320,54 +285,11 @@ def _build_variant(name: str, text: str) -> Path:
     return src
 
 
-def b2_split(source: str, B: int = 32, log=print) -> dict:
-    """(events ms, device ms) of each variant of ``source`` (a WMMA-design stem.cu), all
-    built at once with the flags of ``ops._build``."""
-    srcs = {k: _build_variant(k, v) for k, v in split_variants(Path(source).read_text()).items()}
-    procs = {}
-    for k, src in srcs.items():
-        lib = src.with_suffix(".so")
-        cmd = [_build._nvcc(), *_build._flags("stem"), "-o", str(lib), str(src)]
-        procs[k] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                     text=True), lib)
-    libs = {}
-    for k, (p, lib) in procs.items():
-        outp, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the {k} variant:\n{outp}")
-        fn = ctypes.CDLL(str(lib)).ssdx_stem_forward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[k] = fn
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
-    r = lambda *s, std: torch.randn(*s, generator=g, device=dev) * std
-    bf = torch.bfloat16
-    w1 = (r(64, 3, 3, 3, std=0.15).to(bf).float().permute(2, 3, 1, 0).contiguous())
-    b1 = r(64, std=0.3).to(bf).float()
-    w2 = r(64, 64, 3, 3, std=0.08).to(bf).permute(2, 3, 1, 0).contiguous()
-    b2 = r(64, std=0.3)
-    xs = [(r(B, H, H, 3, std=1.0).to(bf),) for _ in range(3)]
-    out = torch.empty((B, H // 2, H // 2, C), dtype=bf, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    res = {}
-    for k, fn in libs.items():
-        call = lambda x, fn=fn: fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                   b2.data_ptr(), out.data_ptr(), B, stream)
-        assert call(xs[0][0]) == 0, k
-        res[k] = (cuda_ms(call, xs, iters=20), device_ms(call, xs, kernel="stem_kernel"))
-    log(f"B2 split of {source}, bs={B}, ms by events / on the device: " +
-        ", ".join(f"{k} {ev:.4f} / {fmt(dv, '.4f')}" for k, (ev, dv) in res.items()))
-    return res
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--b3-batch", type=int, default=16)
     ap.add_argument("--b2-batch", type=int, default=32)
     ap.add_argument("--windows", type=int, default=1)
-    ap.add_argument("--split-source", default=None)
     ap.add_argument("--b3-cuts", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -378,8 +300,6 @@ def main() -> None:
     b3_split(args.b3_batch, windows=args.windows)
     b3_library(args.b3_batch)
     b2_times(args.b2_batch)
-    if args.split_source:
-        b2_split(args.split_source, args.b2_batch)
     if args.b3_cuts:
         b3_cuts(args.b3_batch)
 

@@ -14,7 +14,8 @@ On the CPU:
 
 On a CUDA card (``chip``; skipped without one), at full width, bf16 and
 int8: the heads bit-identical to the pageable copy's at B = 1, 7, 32 and
-33; back-to-back calls and two threads returning each batch's own result;
+33, and so without the stem kernel for VGG16 and ResNet-50 in bf16 and
+f32; back-to-back calls and two threads returning each batch's own result;
 the span's counts equal; a CUDA tensor bypassing the staging.  Run there with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_input_staging.py``.
 This file imports neither JAX nor the JAX package.
@@ -189,6 +190,18 @@ def test_the_staged_heads_equal_the_pageable_copys(detectors, kind, batch):
     got = det.forward(x)
     assert _equal(got, _pageable(det, x))
     assert _equal(det.forward(torch.from_numpy(x)), got)
+
+
+@chip
+@pytest.mark.parametrize("arch", ["vgg16", "resnet50"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_every_network_and_dtype_stages_the_pageable_copys_bits(cuda, arch, dtype):
+    """Without the stem kernel, in the detector's own dtype: the host's cast
+    gives the heads the card's cast gives."""
+    det = Detector(CLASSES, fold_bn=True, dtype=dtype, device=cuda, rng_seed=5,
+                   architecture=arch)
+    x = _batch(7, 7)
+    assert _equal(det.forward(x), _pageable(det, x))
 
 
 @chip

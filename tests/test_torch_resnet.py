@@ -15,13 +15,16 @@ seeded weights whose BatchNorm statistics are calibrated on random images.
 * ``postprocess`` at 81 classes, IoU-NMS at 0.5, 200 a image, against the
   reference's ``detect``;
 * what the detector refuses for this network (int8, weight exports, the
-  VGG stem kernel, a train state), its spans and its NMS kind.
+  VGG stem kernel, a train state), its spans and its NMS kind;
+* host input staged in the detector's own dtype, for this network and for
+  VGG16 (stem kernel on and off), with the heads of the plain copy's.
 
 This file imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
 import math
+import types
 
 import numpy as np
 import pytest
@@ -31,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 from portbench.drivers.serve_batches_r50 import tree
 from portbench.reference import ssd300_resnet50 as ref
 from ssdx_torch import model_resnet
-from ssdx_torch.api import ARCHITECTURES, Detector
+from ssdx_torch.api import NETWORKS, Detector
 from ssdx_torch.predict import postprocess
 from ssdx_torch.priors import BOXES_PER_LOCATION, FEATURE_MAP_SIZES, NUM_PRIORS, create_priors_coco
 from ssdx_torch.utils.profiling import recent_spans
@@ -113,7 +116,7 @@ def test_the_priors_are_dboxes300_coco():
 
 def test_the_heads_layout(params, images):
     det = _detector(params)
-    heads = det.model.heads.convs
+    heads = det.model.heads
     assert [h.out_channels for h in heads] == [k * (4 + 81) for k in BOXES_PER_LOCATION]
     assert [h.in_channels for h in heads] == ref.tap_channels(WIDTH)
     loc, conf = det.forward(images)
@@ -179,17 +182,40 @@ def test_iou_and_diou_postprocess_differ_where_the_overlaps_do():
 
 def test_the_detector_picks_the_architectures_nms_and_priors(params):
     det = _detector(params)
-    assert det.nms_kind == "iou" == ARCHITECTURES["resnet50"]
+    assert det.nms_kind == "iou" == NETWORKS["resnet50"].nms_kind
     np.testing.assert_array_equal(det.priors.numpy(), create_priors_coco())
     vgg = Detector({"a": 0}, device="cpu", width_mult=0.25)
     assert vgg.nms_kind == "diou" and vgg.architecture == "vgg16"
 
 
-@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, torch.bfloat16), (torch.float32, None)])
-def test_host_input_is_staged_in_the_networks_dtype(params, dtype, want):
-    assert _detector(params, dtype=dtype)._stage_dtype == want
-    vgg = Detector({"a": 0}, device="cpu", width_mult=0.25, dtype=torch.bfloat16)
-    assert vgg._stage_dtype is None  # VGG stages bf16 only for its stem kernel
+def _staged(det, images, monkeypatch) -> torch.Tensor:
+    """What ``Detector._stage`` hands the network, run on the CPU: the
+    pinned buffer becomes a pageable one and the stream's wait a no-op."""
+    empty = torch.empty
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", lambda *a, pin_memory=False, **kw: empty(*a, **kw))
+        m.setattr(torch.cuda, "current_stream",
+                  lambda device=None: types.SimpleNamespace(synchronize=lambda: None))
+        return det._stage(torch.from_numpy(images))
+
+
+@pytest.mark.parametrize("arch,stem_kernel", [("resnet50", False), ("vgg16", False),
+                                              ("vgg16", True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_host_input_is_staged_in_the_networks_dtype(params, images, monkeypatch, arch,
+                                                    stem_kernel, dtype):
+    if arch == "resnet50":
+        det = _detector(params, dtype=dtype)
+    else:
+        det = Detector({"a": 0}, device="cpu", width_mult=0.25, dtype=dtype, fold_bn=True,
+                       stem_kernel=stem_kernel)
+    x = _staged(det, images, monkeypatch)
+    assert x.dtype == det.dtype == dtype and x.device == det.device
+    assert torch.equal(x, torch.from_numpy(images).to(dtype))  # the host's round to nearest even
+    with torch.inference_mode():
+        got = det._forward_local(x)
+        want = det._forward_local(torch.as_tensor(images))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_what_the_resnet_detector_refuses(params, tmp_path):
