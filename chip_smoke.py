@@ -92,7 +92,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      tie / ReLU-boundary input (4,61,59,64), and C = 2048 and C = 24: p
      within one bf16 step, mean and var within 1e-5 of their largest
      magnitude, dx within 0.02 L2-relative, dgamma and dbeta within 1e-3,
-     and two runs of the kernels identical bit for bit;
+     and two runs of the kernels identical bit for bit; then their
+     pool-free twin (ops.bn_relu_pool.bn_relu) at the 10 distinct shapes of
+     the train step's 18 BN + ReLU layers outside the stem, bf16 and f32,
+     within the same limits (dgamma's and dbeta's widened by the pixels
+     whose y takes the other side of the ReLU in the two versions), two
+     runs bit for bit;
  16. the kernels' path: the experiment tool (tools/stem_train_experiments.py)
      runs pool, brp, brp_nosplit and stem_fused beside the unfused bn, bnpool
      and stem at bs=16, the launch counters set to 0 just before and read
@@ -131,8 +136,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
  19. the mesh path at one rank (the same NCCL group), full width:
      Detector(mesh=) on the three scenes equals phase 5's detections
      exactly; forward on B=5 equals the meshless forward; 3 bf16 bs=16
-     train steps with the stem kernel equal phase 9's meshless steps loss
-     for loss, exactly; save_checkpoint_sharded writes the directory format
+     train steps with the stem kernel within phase 9's LOSS_RTOL of its
+     meshless steps, loss for loss (the meshless step runs the BN + ReLU
+     kernels, the mesh keeps the PyTorch ops of sync-BN);
+     save_checkpoint_sharded writes the directory format
      and load_checkpoint restores it; then the dry run's per-rank body
      (tools/dryrun.py, the counterpart of __graft_entry__.py) in the same
      group at full width: a train step on the synthetic batch and one on a
@@ -161,7 +168,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      2 clients x 4 requests and 5 sequential: every request answered 200
      with a PNG, the batcher's image count equal to the requests sent, stem
      and NMS launches above 0 and, in int8, int8 conv launches above 0; its
-     JSON on a log line.
+     JSON on a log line;
+ 24. (after phase 16) B6's pool-free twin at the train step's 18 BN + ReLU
+     layers outside the stem, bs=16, bf16, forward + backward with y's
+     cotangent: device time by launch (tools/profile_split.py bnr_layers,
+     traced right after phase 11, where the profiler keeps its records) and
+     by events, beside the plain version, F.batch_norm + relu on the
+     channels-last view (the library's yardstick) and the bound by bytes
+     (5 x |x| with each input and output once, 8 x |x| with the second read
+     of x at each BN barrier); the kernels' launches in phase 9's five
+     fused steps, 18 forward and 18 backward a step.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -527,16 +543,20 @@ def train_path(dev) -> dict:
 
     state, step, ev = train_setup(dev, fused=True)
     stem_train_ops.launches = stem_ops.launches = nms_ops.launches = 0
+    brp_ops.launches_bn_relu = brp_ops.launches_bn_relu_bwd = 0
     kern = []
     for _ in range(TRAIN_STEPS):
         state, m = step(state, batch)
         kern.append(float(m["loss"]))
     torch.cuda.synchronize()
     per_steps = stem_train_ops.launches
+    bn_relu = (brp_ops.launches_bn_relu, brp_ops.launches_bn_relu_bwd)
     log(f"train steps (bs={TRAIN_BS}, bf16, 16 GT/image): losses with the stem kernel "
         f"{[round(v, 4) for v in kern]}, with fused_stem=False {[round(v, 4) for v in plain]}; "
-        f"stem_train launches {per_steps} in {TRAIN_STEPS} steps")
+        f"stem_train launches {per_steps}, bn_relu launches {bn_relu} (forward, backward) in "
+        f"{TRAIN_STEPS} steps")
     assert per_steps == TRAIN_STEPS, per_steps
+    assert bn_relu == (18 * TRAIN_STEPS, 18 * TRAIN_STEPS), bn_relu
     assert all(np.isfinite(kern)) and all(np.isfinite(plain)), (kern, plain)
     for i, (k, p) in enumerate(zip(kern, plain)):
         assert abs(k - p) <= LOSS_RTOL * abs(p), (i, k, p)
@@ -561,7 +581,7 @@ def train_path(dev) -> dict:
         fresh, start_epoch, best, _ = load_checkpoint(f"{d}/last.ckpt", fresh)
         log(f"load_checkpoint(last.ckpt): start_epoch {start_epoch}, step {fresh.step}")
         assert start_epoch == 1 and fresh.step == TRAIN_STEPS + len(batches)
-    return {"launches": launches, "kern": kern, "plain": plain}
+    return {"launches": launches, "kern": kern, "plain": plain, "bn_relu": bn_relu}
 
 
 # --------------------------------------------------------------- phase 10
@@ -1003,7 +1023,8 @@ def check_brp(dev) -> dict:
     """tools/check_brp.py: BRP_CASES and its edge cases in bf16 and f32, tie_split
     on and off, within phase 15's limits and two runs bit for bit, or it raises."""
     worst = brp_check.check(dev, log=log)
-    return {"max_abs_err": worst[torch.bfloat16]}
+    twin = brp_check.check_bn_relu(dev, log=log)
+    return {"max_abs_err": worst[torch.bfloat16], "bn_relu_max_abs_err": twin[torch.bfloat16]}
 
 # --------------------------------------------------------------- phase 16
 
@@ -1142,6 +1163,27 @@ def pool_brp_timing(dev, launches, errs, brp_split, brp_lines) -> list:
                             forward_device_ms=part(("stats", "stats_finalize", "apply")),
                             backward_device_ms=part(("reduce", "reduce_finalize", "dx")))
     return rows
+
+
+# --------------------------------------------------------------- phase 24
+
+def bn_relu_timing(res, lines, launches, err) -> dict:
+    """Phase 24's row: ``res`` is profile_split.bnr_layers' (traced right
+    after phase 11), ``launches`` phase 9's.  ms is the device time by
+    launch: by events the 18 layers' enqueue, not the card, sets the time
+    of an eager call."""
+    for line in lines:
+        log(line)
+    k, plain, lib = res["kernel"], res["plain"], res["library"]
+    assert k["device_ms"] is not None, "the profiler lost the bn_relu records"
+    return {"name": "bn_relu (18 layers, fwd+bwd)", "route": "cuda",
+            "source": "ssdx_torch/csrc/bn_relu_pool.cu",
+            "replaces": "none (the JAX model's BN + ReLU are XLA's)",
+            "launches": launches[0], "launches_bwd": launches[1], "max_abs_err": err,
+            "ms": k["device_ms"], "events_ms": k["events_ms"], "plain_ms": plain["device_ms"],
+            "plain_events_ms": plain["events_ms"], "bound_ms": res["bound_ms"],
+            "bound_two_reads_ms": res["bound_two_reads_ms"], "bound_by": "bytes",
+            "library_ms": lib["device_ms"], "library_events_ms": lib["events_ms"]}
 
 
 # --------------------------------------------------------------- phase 17
@@ -1472,7 +1514,9 @@ def mesh_path(dev, mesh, det, preds5, plain_losses) -> dict:
     log(f"mesh path: {MESH_STEPS} train steps (bs={TRAIN_BS}, bf16, stem kernel) in the mesh, "
         f"losses {losses}; meshless (phase 9) {plain_losses[:MESH_STEPS]}; kernel launches "
         f"{launches}")
-    assert losses == plain_losses[:MESH_STEPS], (losses, plain_losses)
+    # the meshless steps ran the BN + ReLU kernels, these the PyTorch ops of sync-BN
+    for m_, p_ in zip(losses, plain_losses):
+        assert abs(m_ - p_) <= LOSS_RTOL * abs(p_), (losses, plain_losses)
     # the stem kernel: 3 scenes and B=5 in the mesh, and the meshless B=5 beside it
     assert launches["stem"] == len(scenes) + 2 and launches["nms"] == len(scenes), launches
     assert launches["stem_train"] == MESH_STEPS, launches
@@ -1795,6 +1839,8 @@ def main() -> int:
                             profile_stem.b3_library(TRAIN_BS, log=b3_lines.append))
     brp_lines = []  # phase 16's split of the bn_relu_pool launches, printed there
     brp_split = profile_split.brp_split(log=brp_lines.append)
+    bnr_lines = []  # phase 24's timing of the pool-free twin, printed there
+    bnr = profile_split.bnr_layers(log=bnr_lines.append)
     launches8 = int8_path(det, det8)
     serve(det8)
     kernels += int8_timing(dev, det, det8, launches8, errs, layer_rows)
@@ -1810,6 +1856,8 @@ def main() -> int:
     errs["pool"], errs["brp"] = check_pool(dev), check_brp(dev)
     tool = tool_path()
     kernels += pool_brp_timing(dev, tool["launches"], errs, brp_split, brp_lines)
+    kernels.append(bn_relu_timing(bnr, bnr_lines, train["bn_relu"],
+                                  errs["brp"]["bn_relu_max_abs_err"]))
     check_augment(dev)
     t = time.perf_counter()
     data_path(dev)

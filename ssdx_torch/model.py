@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .mesh import all_reduce_sum
+from .ops.bn_relu_pool import bn_relu
 from .priors import BOXES_PER_LOCATION, NUM_PRIORS, create_priors
 
 __all__ = ["SSD300", "Heads", "multibox", "IMAGE_SIZE", "BACKBONE", "init_variables", "update_running_stats"]
@@ -92,6 +93,12 @@ class ConvBNRelu(nn.Module):
     mean and variance are formed and the count is the global batch's, so
     the statistics, and through the differentiable all-reduce the
     gradient, are those of the whole batch (sync-BN).
+
+    On a CUDA tensor outside a mesh the train-mode BN + ReLU runs on the
+    kernels of :func:`ssdx_torch.ops.bn_relu_pool.bn_relu` (the same
+    statistics, y = relu(x*a + b) with a = gamma*rsqrt(var + eps), b = beta
+    - mean*a, rounded once); the CPU, a mesh (whose all-reduce sits between
+    the sums and the normalisation) and eval mode keep the PyTorch ops below.
     """
 
     def __init__(self, cin, cout, kernel, stride, padding, dilation, use_bn):
@@ -104,6 +111,10 @@ class ConvBNRelu(nn.Module):
         y = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
                      c.padding, c.dilation)
         bn = self.bn
+        if bn is not None and train and mesh is None and y.is_cuda:
+            y, mean, var = bn_relu(y.permute(0, 2, 3, 1), bn.weight, bn.bias, bn.eps)
+            update_running_stats(bn, mean, var)
+            return y.permute(0, 3, 1, 2)
         if bn is not None and train:
             yf = y.float()
             n = yf.numel() // yf.shape[1] * (1 if mesh is None else mesh.size)

@@ -1,7 +1,10 @@
-"""Train-mode BatchNorm + ReLU + 2x2/2 max pool on NHWC, with its own backward.
+"""Train-mode BatchNorm + ReLU (+ 2x2/2 max pool) on NHWC, with its own backward.
 
 ``bn_relu_pool(x, gamma, beta)`` returns ``(p, mean, var)``: the pooled map
 and the biased batch statistics for the caller's running-average update.
+``bn_relu(x, gamma, beta)`` is its pool-free twin, ``(y, mean, var)`` with y
+of x's shape: the train step's BatchNorm + ReLU layers that no pool follows
+at once (``model.ConvBNRelu`` on a CUDA tensor outside a mesh).
 On a CUDA tensor it runs :class:`BnReluPool`, whose forward and backward
 launch the hand-written kernels of ``csrc/bn_relu_pool.cu`` (four passes of
 one persistent kernel that streams tiles of x through shared memory by bulk
@@ -36,6 +39,16 @@ Contract (both versions; float32 throughout, float64 for float64 inputs):
   * the kernels take bfloat16 and float32 with ``C % 8 == 0`` and
     ``C <= 2048``; their sums have a fixed order, so two runs agree bit for
     bit.
+
+``bn_relu``'s contract is the same without the window: y = relu(x*a + b)
+rounded once to ``x``'s type; the backward masks dy by y > 0 (y in float32,
+before the rounding) and takes the BN backward above.  It moves 5 x |x|
+with each input and output once (x, y; x, dy, dx) and 8 x |x| with the
+second read of x that each BN barrier forces; the kernels are B6's four
+passes in their pool-free mode (see the source's header), one flat tile
+walk over the B*H*W pixels (:func:`flat_tiles`).  ``bn_relu`` refuses what
+the kernels do not take on every device, so a shape that passes on the CPU
+passes on the card.
 """
 from __future__ import annotations
 
@@ -47,14 +60,18 @@ from .pool import _DTYPES, _aligned, _compute_dtype, bind, check_nhwc, launch, s
 from .pool import route, unwindows, windows
 
 __all__ = ["bn_relu_pool", "bn_relu_pool_ref", "BnReluPool", "BnReluPoolRef", "tiles",
-           "launches", "launches_bwd"]
+           "bn_relu", "bn_relu_ref", "BnRelu", "BnReluRef", "flat_tiles",
+           "launches", "launches_bwd", "launches_bn_relu", "launches_bn_relu_bwd"]
 
 launches = 0      # forwards of bn_relu_pool that launched stats + apply
 launches_bwd = 0  # backwards that launched reduce + dx
+launches_bn_relu = 0      # forwards of bn_relu that launched its stats + apply
+launches_bn_relu_bwd = 0  # and backwards that launched its reduce + dx
 
 _MAX_C = 2048
 _CONSUMERS = 256   # csrc/bn_relu_pool.cu kConsumers: threads that read the tiles
 _BLOCKS_PER_SM = 2  # the pipeline kernel's __launch_bounds__
+_BANDS = 4 * 2 * 132  # flat_tiles: about four bands for each block of an H100 SXM's grid
 _lib = None
 
 
@@ -83,21 +100,27 @@ def _ref_forward(x, gamma, beta, eps, ceil):
     return p.to(x.dtype), mean, var
 
 
-def _ref_backward(x, gamma, beta, mean, var, eps, ceil, tie_split, gp, gmean, gvar):
-    ct = _compute_dtype(x.dtype)
-    B, H, W, C = x.shape
-    n = B * H * W
-    xf, gamma, beta = x.to(ct), gamma.to(ct), beta.to(ct)
-    inv, a, b = _affine(gamma, beta, mean, var, eps)
-    win = windows(torch.relu(xf * a + b), ceil, float("-inf"))
-    pmax = win.amax(dim=(2, 4), keepdim=True)
-    dy = unwindows(route(win, pmax, gp.to(ct), pmax > 0, tie_split), H, W)
+def _bn_backward(x, xf, gamma, mean, inv, dy, gmean, gvar):
+    """``(dx, dgamma, dbeta)`` from the routed or masked ``dy`` in float32."""
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    ct = xf.dtype
     xhat = (xf - mean) * inv
     s1 = dy.sum(dim=(0, 1, 2))
     s2 = (dy * xhat).sum(dim=(0, 1, 2))
     dx = (gamma * inv) * (dy - (s1 / n + xhat * (s2 / n)))
     dx = dx + gmean.to(ct) / n + gvar.to(ct) * (2.0 / n) * (xf - mean)
     return dx.to(x.dtype), s2, s1
+
+
+def _ref_backward(x, gamma, beta, mean, var, eps, ceil, tie_split, gp, gmean, gvar):
+    ct = _compute_dtype(x.dtype)
+    H, W = x.shape[1], x.shape[2]
+    xf, gamma, beta = x.to(ct), gamma.to(ct), beta.to(ct)
+    inv, a, b = _affine(gamma, beta, mean, var, eps)
+    win = windows(torch.relu(xf * a + b), ceil, float("-inf"))
+    pmax = win.amax(dim=(2, 4), keepdim=True)
+    dy = unwindows(route(win, pmax, gp.to(ct), pmax > 0, tie_split), H, W)
+    return _bn_backward(x, xf, gamma, mean, inv, dy, gmean, gvar)
 
 
 class BnReluPoolRef(torch.autograd.Function):
@@ -123,6 +146,45 @@ def bn_relu_pool_ref(x, gamma, beta, eps: float = 1e-5, ceil: bool = False,
     return BnReluPoolRef.apply(x, gamma, beta, eps, ceil, tie_split)
 
 
+def _ref_bn_relu_forward(x, gamma, beta, eps):
+    ct = _compute_dtype(x.dtype)
+    xf = x.to(ct)
+    mean, var = _stats(xf)
+    _, a, b = _affine(gamma.to(ct), beta.to(ct), mean, var, eps)
+    return torch.relu(xf * a + b).to(x.dtype), mean, var
+
+
+def _ref_bn_relu_backward(x, gamma, beta, mean, var, eps, gy, gmean, gvar):
+    ct = _compute_dtype(x.dtype)
+    xf, gamma, beta = x.to(ct), gamma.to(ct), beta.to(ct)
+    inv, a, b = _affine(gamma, beta, mean, var, eps)
+    dy = torch.where(xf * a + b > 0, gy.to(ct), 0.0)
+    return _bn_backward(x, xf, gamma, mean, inv, dy, gmean, gvar)
+
+
+class BnReluRef(torch.autograd.Function):
+    """The plain version of :func:`bn_relu`: every step a PyTorch op."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, var = _ref_bn_relu_forward(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, beta, mean, var)
+        ctx.eps = eps
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, beta, mean, var = ctx.saved_tensors
+        dx, dgamma, dbeta = _ref_bn_relu_backward(x, gamma, beta, mean, var, ctx.eps,
+                                                  gy, gmean, gvar)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None
+
+
+def bn_relu_ref(x, gamma, beta, eps: float = 1e-5):
+    """The plain version of :func:`bn_relu`, on any device: ``(y, mean, var)``."""
+    return BnReluRef.apply(x, gamma, beta, eps)
+
+
 # ------------------------------------------------------------- kernel route
 
 
@@ -138,6 +200,10 @@ def _kernel():
             "ssdx_brp_reduce": [P, P, P, P, Geo, I, I, I, S],
             "ssdx_brp_reduce_finalize": [P, I, I, Fl, P, P, P, P, S],
             "ssdx_brp_dx": [P, P, P, P, P, Geo, I, I, I, S],
+            "ssdx_bnr_stats": [P, P, Geo, I, I, S],
+            "ssdx_bnr_apply": [P, P, P, Geo, I, I, S],
+            "ssdx_bnr_reduce": [P, P, P, P, Geo, I, I, S],
+            "ssdx_bnr_dx": [P, P, P, P, P, Geo, I, I, S],
         })
     return _lib
 
@@ -174,6 +240,32 @@ def tiles(B: int, H: int, W: int, C: int, ceil: bool, mode: str) -> dict:
         bands = Hp if Wp > 0 else 0
     return dict(B=B, H=H, W=W, C=C, Hp=Hp, Wp=Wp, G=G, slots=slots, tw=tw,
                 nq=-(-W // tw), bands=bands, nbands=B * bands)
+
+
+def flat_tiles(B: int, H: int, W: int, C: int) -> dict:
+    """The tile geometry of :func:`bn_relu`'s four passes.
+
+    Without the pool the map is one flat run of ``N = B*H*W`` pixels (handed
+    to the kernel as ``B = H = 1, W = N``): a tile is ``tw = 2 * slots``
+    consecutive pixels with all C channels, in which consumer thread (slot,
+    cg) takes pixels 2*slot, 2*slot + 1 and channels 8*cg .. 8*cg + 7, so
+    the tile's x (and dy) hold ``tw * C <= 4096`` elements each.  A band is
+    ``nq`` consecutive tiles, the last band's tail past N empty; every pass
+    walks the same bands, and stats and reduce write one partial row per
+    band.  ``nq`` depends on the shape alone, so the sums' order does too:
+    about ``_BANDS`` bands where the map is large, at least 32 pixels a band,
+    so that a band's partial row (8 C bytes) stays within an eighth of the
+    bytes of x the band reads in bfloat16.
+    """
+    N = B * H * W
+    G = C // 8
+    slots = _CONSUMERS // G
+    tw = 2 * slots
+    ntiles = -(-N // tw)
+    nq = max(-(-ntiles // _BANDS), -(-32 // tw))
+    nbands = -(-ntiles // nq)
+    return dict(B=1, H=1, W=N, C=C, Hp=0, Wp=0, G=G, slots=slots, tw=tw, nq=nq,
+                bands=nbands, nbands=nbands)
 
 
 _GEO = ("B", "H", "W", "C", "Hp", "Wp", "G", "slots", "tw", "nq", "bands", "nbands")
@@ -257,6 +349,96 @@ class BnReluPool(torch.autograd.Function):
         return dx, dgamma.to(dg), dbeta.to(db), None, None, None
 
 
+def _kernel_bn_relu_forward(x, gamma, beta, eps):
+    """``(y, mean, var, vec)``, as :func:`_kernel_forward` without the pool."""
+    f32, dev = torch.float32, x.device
+    B, H, W, C = x.shape
+    dt, t = _DTYPES[x.dtype], flat_tiles(B, H, W, C)
+    geo, grid = _geo(t), _grid(t, dev)
+    part = torch.empty((t["nbands"], 2 * C), dtype=f32, device=dev)
+    _launch("ssdx_bnr_stats", x, part, geo, dt, grid)
+    mean, var = torch.empty(C, dtype=f32, device=dev), torch.empty(C, dtype=f32, device=dev)
+    vec = torch.empty((4, C), dtype=f32, device=dev)
+    _launch("ssdx_brp_stats_finalize", part, t["nbands"], C, float(B * H * W), float(eps),
+            gamma, beta, mean, var, vec)
+    y = torch.empty_like(x)
+    _launch("ssdx_bnr_apply", x, vec, y, geo, dt, grid)
+    return y, mean, var, vec
+
+
+def _kernel_bn_relu_backward(x, vec, gy, gmean, gvar):
+    """``(dx, dgamma, dbeta)`` from the forward's ``vec``."""
+    f32, dev = torch.float32, x.device
+    B, H, W, C = x.shape
+    dt, t = _DTYPES[x.dtype], flat_tiles(B, H, W, C)
+    geo, grid = _geo(t), _grid(t, dev)
+    dy = _aligned(gy.to(x.dtype))
+    part = torch.empty((t["nbands"], 2 * C), dtype=f32, device=dev)
+    _launch("ssdx_bnr_reduce", x, dy, vec, part, geo, dt, grid)
+    fin = torch.empty((4, C), dtype=f32, device=dev)  # s1, s2, A, B0
+    _launch("ssdx_brp_reduce_finalize", part, t["nbands"], C, float(B * H * W), vec,
+            gmean.to(f32).contiguous(), gvar.to(f32).contiguous(), fin)
+    dx = torch.empty_like(x)
+    _launch("ssdx_bnr_dx", x, dy, vec, fin, dx, geo, dt, grid)
+    return dx, fin[1], fin[0]
+
+
+class BnRelu(torch.autograd.Function):
+    """The kernel route of :func:`bn_relu`: the forward launches stats,
+    stats_finalize and apply, the backward reduce, reduce_finalize and dx,
+    each pipeline pass in its pool-free mode (csrc/bn_relu_pool.cu)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        global launches_bn_relu
+        xk = _aligned(x.detach())
+        gk, bk = gamma.detach().float().contiguous(), beta.detach().float().contiguous()
+        y, mean, var, vec = _kernel_bn_relu_forward(xk, gk, bk, eps)
+        launches_bn_relu += 1
+        ctx.save_for_backward(xk, vec)
+        ctx.param_dtypes = (gamma.dtype, beta.dtype)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        global launches_bn_relu_bwd
+        x, vec = ctx.saved_tensors
+        dx, dgamma, dbeta = _kernel_bn_relu_backward(x, vec, gy, gmean, gvar)
+        launches_bn_relu_bwd += 1
+        dg, db = ctx.param_dtypes
+        return dx, dgamma.to(dg), dbeta.to(db), None
+
+
+def _check_args(name, x, gamma, beta):
+    if x.dim() != 4 or gamma.shape != (x.shape[-1],) or beta.shape != gamma.shape:
+        raise ValueError(f"{name} takes x [B,H,W,C] and gamma, beta [C]; got "
+                         f"{tuple(x.shape)}, {tuple(gamma.shape)}, {tuple(beta.shape)}")
+    if gamma.device != x.device or beta.device != x.device:
+        raise ValueError(f"{name}: x, gamma and beta must share a device")
+
+
+def bn_relu(x, gamma, beta, eps: float = 1e-5):
+    """Train-mode BN + ReLU of NHWC ``x`` -> ``(y, mean, var)``, y of x's
+    shape and type, differentiable in ``x``, ``gamma`` and ``beta`` through
+    all three outputs.
+
+    CPU tensors take the plain version; CUDA tensors take the kernels.  On
+    every device it refuses C % 8 != 0 and C > 2048, what the kernels do not
+    take.
+    """
+    _check_args("bn_relu", x, gamma, beta)
+    C = x.shape[-1]
+    if C % 8 or C > _MAX_C:
+        raise ValueError(f"the bn_relu kernels need C % 8 == 0 and C <= {_MAX_C}, got C={C}")
+    dev = x.device
+    if dev.type == "cpu":
+        return BnReluRef.apply(x, gamma, beta, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"bn_relu: unsupported device {dev}")
+    check_nhwc("bn_relu", x, _MAX_C)
+    return BnRelu.apply(x, gamma, beta, eps)
+
+
 def bn_relu_pool(x, gamma, beta, eps: float = 1e-5, ceil: bool = False, tie_split: bool = True):
     """Train-mode BN + ReLU + 2x2/2 max pool of NHWC ``x`` -> ``(p, mean,
     var)``, differentiable in ``x``, ``gamma`` and ``beta`` through all three
@@ -264,12 +446,8 @@ def bn_relu_pool(x, gamma, beta, eps: float = 1e-5, ceil: bool = False, tie_spli
 
     CPU tensors take the plain version; CUDA tensors take the kernels.
     """
+    _check_args("bn_relu_pool", x, gamma, beta)
     dev = x.device
-    if x.dim() != 4 or gamma.shape != (x.shape[-1],) or beta.shape != gamma.shape:
-        raise ValueError(f"bn_relu_pool takes x [B,H,W,C] and gamma, beta [C]; got "
-                         f"{tuple(x.shape)}, {tuple(gamma.shape)}, {tuple(beta.shape)}")
-    if gamma.device != dev or beta.device != dev:
-        raise ValueError("bn_relu_pool: x, gamma and beta must share a device")
     if dev.type == "cpu":
         return BnReluPoolRef.apply(x, gamma, beta, eps, ceil, tie_split)
     if dev.type != "cuda":

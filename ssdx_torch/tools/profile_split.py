@@ -1,6 +1,7 @@
-"""Device time by launch of the NMS kernel B1 and the BN + ReLU + pool kernels B6.
+"""Device time by launch of the NMS kernel B1, the BN + ReLU + pool kernels B6
+and B6's pool-free twin.
 
-    python -m ssdx_torch.tools.profile_split [nms|brp|all] [--iters 10]
+    python -m ssdx_torch.tools.profile_split [nms|brp|bnr|all] [--iters 10]
 
 B1 (``ops.nms.nms_core_sorted``, ``csrc/nms.cu``): B=32 at K=400 (serving)
 and K=1600 (eval), candidates kept apart by the class offset, DIoU at
@@ -8,6 +9,14 @@ and K=1600 (eval), candidates kept apart by the class offset, DIoU at
 5 labels handed to the kernel (the ResNet-50 network's postprocess).
 B6 (``ops.bn_relu_pool.bn_relu_pool``, ``csrc/bn_relu_pool.cu``): one forward + backward, cotangents for all three
 outputs, at the four shapes of ``tools/check_brp.py``'s ``BRP_CASES`` in bf16.
+The pool-free twin (``ops.bn_relu_pool.bn_relu``): one forward + backward of
+each of the train step's 18 BN + ReLU layers outside the stem
+(``check_brp.LAYER_SHAPES``, bs=16, bf16) with the cotangent of y alone, as
+the step runs them; beside it, by events and on the device, the plain
+version and ``F.batch_norm`` + ``relu`` on the channels-last NCHW view (the
+library's yardstick, which the port never calls), and the bound by bytes
+with each input and output once (5 x |x|) and with the second reads of x
+(8 x |x|).
 
 Each case runs ``--iters`` calls over distinct inputs inside one
 ``torch.profiler`` window and prints every kernel by name with its device
@@ -30,10 +39,11 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 from ssdx_torch.ops import bn_relu_pool as brp_ops
 from ssdx_torch.ops import nms as nms_ops
-from ssdx_torch.tools.check_brp import BRP_CASES, brp_inputs
+from ssdx_torch.tools.check_brp import BRP_CASES, LAYER_SHAPES, bn_relu_inputs, brp_inputs
 from ssdx_torch.tools.check_nms import nms_inputs
 from ssdx_torch.tools.roofline import PEAK_BYTES, PEAK_F32, bound_ms
 
@@ -84,12 +94,12 @@ BRP_MODES = ("stats", "apply", "reduce", "dx")  # csrc/bn_relu_pool.cu, enum Mod
 
 def kernel_name(name: str) -> str:
     """A device record's short name: ``..::reduce_kernel<__nv_bfloat16>(...)``
-    -> ``reduce``, ``..::pipe_kernel<__nv_bfloat16, 2>(...)`` -> ``reduce``
-    (B6's passes by their mode); anything that is not a ``*_kernel`` of the
-    op -> "glue"."""
-    m = re.search(r"pipe_kernel<[^,<>]+, (\d)>", name)
+    -> ``reduce``, ``..::pipe_kernel<__nv_bfloat16, 2, true>(...)`` ->
+    ``reduce`` (B6's passes by their mode; ``flat_reduce`` for the pool-free
+    twin's); anything that is not a ``*_kernel`` of the op -> "glue"."""
+    m = re.search(r"pipe_kernel<[^,<>]+, (\d)(?:, (\w+))?>", name)
     if m:
-        return BRP_MODES[int(m.group(1))]
+        return ("flat_" if m.group(2) in ("false", "0") else "") + BRP_MODES[int(m.group(1))]
     m = re.search(r"(\w+)_kernel\b", name)
     return m.group(1) if m and "at::" not in name and "native" not in name else "glue"
 
@@ -184,9 +194,38 @@ def brp_split(iters=10, log=print) -> list:
     return out
 
 
+def bnr_layers(iters=5, log=print) -> dict:
+    """The pool-free twin at the train step's 18 BN + ReLU layers, forward +
+    backward, beside the plain version and F.batch_norm + relu."""
+    dev = torch.device("cuda")
+    layers = [bn_relu_inputs(dev, shape, seed=60 + i) for i, shape in enumerate(LAYER_SHAPES)]
+    nhwc = lambda t: t.permute(0, 2, 3, 1)
+    fns = {"kernel": lambda x, g, b: brp_ops.bn_relu(x, g, b, 1e-5)[0],
+           "plain": lambda x, g, b: brp_ops.bn_relu_ref(x, g, b, 1e-5)[0],
+           "library": lambda x, g, b: nhwc(F.relu(F.batch_norm(
+               x.permute(0, 3, 1, 2), None, None, g, b, training=True, eps=1e-5)))}
+    values = sum(ins[0].numel() for ins, _ in layers)
+    once, passes = (k * 2 * values / PEAK_BYTES * 1e3 for k in (5, 8))
+    out = {"values": values, "bound_ms": once, "bound_two_reads_ms": passes}
+    for label, fn in fns.items():
+        def both(_, fn=fn):
+            for ins, (dy, _, _) in layers:
+                leaves = [a.detach().requires_grad_() for a in ins]
+                fn(*leaves).backward(dy)
+
+        n = iters if label != "plain" else 2
+        res = split(both, [0], n)
+        ev = events_ms(both, 1, iters=n, warmup=2)
+        total = show(f"{label}: 18 BN + ReLU layers bs=16 bf16 fwd+bwd", res,
+                     f"{ev:.4f} ms by events; bound {once:.4f} ms by bytes ({passes:.4f} with "
+                     f"the second read of x at each BN barrier)", log)
+        out[label] = {"device_ms": total, "events_ms": ev, "split": res}
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", nargs="?", choices=("nms", "brp", "all"), default="all")
+    ap.add_argument("what", nargs="?", choices=("nms", "brp", "bnr", "all"), default="all")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -197,6 +236,8 @@ def main(argv=None) -> None:
         res["nms"] = nms_split(args.iters)
     if args.what in ("brp", "all"):
         res["brp"] = brp_split(args.iters)
+    if args.what in ("bnr", "all"):
+        res["bnr"] = bnr_layers(min(args.iters, 5))
     print(json.dumps(res))
 
 

@@ -30,9 +30,13 @@ the same order as the eager step, so the two agree bit for bit.
 
 The step's phases (batch copy, forward, targets and loss, backward,
 optimizer) are spans of :func:`ssdx_torch.utils.profiling.span`, which do
-nothing unless a profiler runs.  The step's span counts ``steps`` (1) and
-``replayed`` (1 when the graph ran it); under a replay the forward, targets
-and loss and backward spans do not run.
+nothing unless a profiler runs.  The step's span counts ``steps`` (1),
+``replayed`` (1 when the graph ran it), ``bn_layers`` (the train-mode BN
+layers its forward runs through ``ConvBNRelu``, every one but the stem
+kernel's) and ``bn_fused`` (how many of them ran on the BN + ReLU kernels,
+the movement of ``ops.bn_relu_pool.launches_bn_relu`` over the step, which
+a replay moves too); under a replay the forward, targets and loss and
+backward spans do not run.
 """
 from __future__ import annotations
 
@@ -44,8 +48,9 @@ import torch
 from ..losses import multibox_loss
 from ..matching import build_targets
 from ..mesh import all_reduce_sum, broadcast_
-from ..model import update_running_stats
+from ..model import _STEM_LAYERS, update_running_stats
 from .. import ops
+from ..ops import bn_relu_pool as bn_relu_ops
 from ..ops.stem_train import stem_train
 from ..predict import Detections, postprocess
 from ..utils import debug
@@ -255,6 +260,8 @@ def make_train_step(
                          "(width_mult=1, no fold_bn/stem_input)")
     priors_cxcywh = torch.as_tensor(priors_cxcywh, device=dev)
     priors_xyxy = torch.as_tensor(priors_xyxy, device=dev)
+    first = _STEM_LAYERS if fused_stem else 0
+    bn_layers = sum(layer.bn is not None for layer in model.layers[first:])
 
     def forward(state: TrainState, images):
         m = state.model
@@ -290,14 +297,16 @@ def make_train_step(
     graph = _StepGraph(losses, dev) if _graphable(dev, mesh) else None
 
     def train_step(state: TrainState, batch: Batch):
-        with span("ssdx_torch.train.step", steps=1) as step_span:
+        with span("ssdx_torch.train.step", steps=1, bn_layers=bn_layers) as step_span:
+            fused_before = bn_relu_ops.launches_bn_relu
             with span("ssdx_torch.train.batch_copy"):
                 batch = _on(dev, batch)
             if graph is not None and not debug.nan_checks_enabled():
                 stacked, replayed = graph(state, batch)
             else:
                 stacked, replayed = losses(state, batch), False
-            step_span.count(replayed=int(replayed))
+            step_span.count(replayed=int(replayed),
+                            bn_fused=bn_relu_ops.launches_bn_relu - fused_before)
             metrics = _metrics(stacked)
             if debug.nan_checks_enabled():
                 debug.check_finite_loss(metrics["loss"], state.step)

@@ -21,7 +21,8 @@ eager twin (NaN checks on, which keep the eager route) from one seed, the
 full-width fused-stem model and a width-0.25 unfused one, 5 steps of which
 steps 2-5 replay: every parameter, momentum buffer and running statistic
 and the three losses equal bit for bit after every step, and every kernel
-module's launch counters move as the eager twin's do; a batch of another
+module's launch counters move as the eager twin's do, the step's span
+counting every BN layer outside the stem kernel on the BN + ReLU kernels; a batch of another
 shape runs eagerly, bit-equal, between replays; losses kept from step 2
 unchanged after step 4; B3's launch counter counting every step.  Run there with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_train_graph.py``.
@@ -112,7 +113,7 @@ def test_a_cpu_model_never_captures():
     assert not step_mod._graphable(torch.device("cpu"), None)
     for i in range(2):
         _, counts = _counted_step(step, state, _batch(i, 2, "cpu"))
-        assert counts == {"steps": 1, "replayed": 0}
+        assert counts == {"steps": 1, "replayed": 0, "bn_layers": 20, "bn_fused": 0}
 
 
 class _EagerGraph:
@@ -150,7 +151,7 @@ def test_the_route_takes_the_graphs_only_without_a_mesh_or_nan_checks(route, mon
     finally:
         debug.disable_nan_checks()
     graphed = route == "graphs"
-    assert counts == {"steps": 1, "replayed": int(graphed)}
+    assert counts == {"steps": 1, "replayed": int(graphed), "bn_layers": 20, "bn_fused": 0}
     assert _EagerGraph.calls == int(graphed)
     _assert_equal(_snapshot(state, m), _snapshot(plain, m_plain), route)
 
@@ -288,11 +289,13 @@ def test_replayed_steps_equal_eager_steps_bit_for_bit(cuda, width_mult):
     batches = [_batch(10 + i, 4, cuda) for i in range(5)]
     stem_train_ops.launches = 0
     kept = None
+    bn = {"bn_layers": 18, "bn_fused": 18} if width_mult == 1.0 else {"bn_layers": 20,
+                                                                      "bn_fused": 20}
     for i, b in enumerate(batches):
         (m, counts), launched = _launching(lambda: _counted_step(gstep, gs, b))
-        assert counts == {"steps": 1, "replayed": int(i > 0)}, i
+        assert counts == {"steps": 1, "replayed": int(i > 0), **bn}, i
         (em, ecounts), elaunched = _launching(lambda: _eager_step(estep, es, b))
-        assert ecounts == {"steps": 1, "replayed": 0}
+        assert ecounts == {"steps": 1, "replayed": 0, **bn}
         assert launched == elaunched, i
         if i == 1:
             kept = (m, {k: v.clone() for k, v in m.items()})
